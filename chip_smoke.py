@@ -5,7 +5,8 @@
 
 Run from the repository root. Phases, each of which must pass:
 
-1. build   nvcc builds the CUDA kernels of genometester4_tpu_torch/csrc.
+1. build   nvcc builds the CUDA kernels of genometester4_tpu_torch/csrc,
+           one nvcc per source, all started together.
 2. main    glistmaker's counting route, ``make_list(..., device="cuda")``,
            counts the canonical 25-mers of a 50 Mbp genome-shaped FASTA made
            from --seed (GC isochores + planted repeat families) at the default
@@ -13,10 +14,21 @@ Run from the repository root. Phases, each of which must pass:
            merge run. Both kernels' launch counters must move.
 3. oracle  numpy alone (no torch) counts the same 25-mers with np.unique;
            its .list bytes must equal the port's.
-4. kernels each CUDA kernel against its plain PyTorch version on the card
-           at 2^25 elements: equal bits required (integer contract,
-           tolerance 0); median times of both are printed.
-5. card    the card's name and power limit from nvidia-smi.
+4. katk    KATK gassembler through the port's CLI on CUDA, over 1,000
+           exome-style 200 bp regions (plus one oversized region between
+           two regions of more than 200 reads) with 150 bp reads at 40x
+           made from --seed; the read index comes from the JAX package's
+           gmer_counter --compile_index host route in a subprocess (set-up,
+           untimed). Its stdout and stderr must equal the JAX package's
+           host route (native C SW, GT4_TPU_DEVICE_SW=0) run in a
+           subprocess, and kernel C must have run in fewer launches than
+           regions.
+5. shared  kernel D's entry point (``sw_pallas_matrices``) over the reads
+           of 64 regions; equal to kernel C's entry on the same input.
+6. kernels each CUDA kernel against its plain PyTorch version on the card
+           at the shapes of its path: equal bits required (integer
+           contract, tolerance 0); median times of both are printed.
+7. card    the card's name and power limit from nvidia-smi.
 
 The last two lines of stdout are a JSON object of the kernels and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -26,7 +38,9 @@ them; so does a machine without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import filecmp
+import io
 import json
 import os
 import statistics
@@ -42,6 +56,10 @@ K = 25
 GENOME_BP = 50_000_000
 N_KERNEL = 1 << 25
 EXTRACT_KS = (1, 16, 17, 25, 31, 32)
+
+SHARED_REGIONS = 64      # kernel D's path: regions for sw_pallas_matrices
+SW_LANES_SHAPE = (512, 200, 152)   # kernel C: window of reads, n_cap, m_cap
+SW_SHARED_SHAPE = (128, 200, 150)  # kernel D: reads, n, m
 
 
 class SmokeFailure(Exception):
@@ -147,9 +165,10 @@ def median_ms(torch, fn, reps: int) -> float:
 
 def max_abs_err(torch, got, want) -> int:
     """Largest |got - want| over integer tensors, exact (0 when equal)."""
-    got, want = got.cpu().to(torch.int64), want.cpu().to(torch.int64)
     check(got.shape == want.shape, f"shape {tuple(got.shape)} != "
                                    f"{tuple(want.shape)}")
+    got = got.cpu().to(torch.int64).flatten()
+    want = want.cpu().to(torch.int64).flatten()
     bad = torch.nonzero(got != want).flatten()[:1000].tolist()
     return max((abs(int(got[i]) - int(want[i])) for i in bad), default=0)
 
@@ -230,6 +249,218 @@ def phase_kernels(torch, seed: int) -> dict:
     return res
 
 
+def _port_gassembler(torch, path: str, args: list):
+    """The port's gassembler CLI in this process on CUDA, in ``path``;
+    returns (rc, stdout bytes, stderr bytes, wall s to a synchronize)."""
+    from genometester4_tpu_torch.cli.gassembler import main as gassembler
+    out, err = io.StringIO(), io.StringIO()
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = gassembler(args, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(old)
+    return rc, out.getvalue().encode(), err.getvalue().encode(), wall
+
+
+def phase_katk(torch, path: str, seed: int):
+    """KATK gassembler on CUDA against the JAX package's host route.
+    Returns (kernel C launches, the regions' SW inputs)."""
+    from genometester4_tpu_torch.ops.swalign_cuda import sw_fill_lanes_cuda
+    from genometester4_tpu_torch.pipelines import gassemble as port_gas
+    from genometester4_tpu_torch.tools import katk_fixture as kf
+
+    t0 = time.perf_counter()
+    inputs = kf.write_katk_fixture(path, seed)
+    r, _ = kf.jax_package_cli(path, "gmer_counter", kf.INDEX_ARGS,
+                              GT4_TPU_COUNT_IMPL="host")
+    check(r.returncode == 0, f"gmer_counter --compile_index failed: "
+                             f"{r.stderr.decode(errors='replace')[-2000:]}")
+    with open(os.path.join(path, "regions.txt")) as f:
+        n_regions = sum(1 for _ in f)
+    n_reads = sum(len(reads) for _, reads in inputs)
+    log(f"katk input: {n_regions} regions ({kf.REGIONS} of "
+        f"{kf.REGION_BP} bp + 1 oversized), {n_reads} reads of "
+        f"{kf.READ_BP} bp (seed {seed}), read index built in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+
+    # warm-up of the host route: native library build, page cache
+    kf.jax_package_cli(path, "gassembler", kf.ARGS + ["--max_regions", "8"],
+                       GT4_TPU_DEVICE_SW="0")
+    t0 = time.perf_counter()
+    want, host_wall = kf.jax_package_cli(path, "gassembler", kf.ARGS,
+                                         GT4_TPU_DEVICE_SW="0")
+    process_wall = time.perf_counter() - t0
+    check(want.returncode == 0, f"JAX host-route gassembler failed: "
+                                f"{want.stderr.decode(errors='replace')}")
+    lines = want.stdout.count(b"\n")
+    log(f"katk oracle: JAX package host route (native C SW) in a "
+        f"subprocess, main() wall {host_wall:.3f} s "
+        f"({n_regions / host_wall:.1f} regions/s; the whole process "
+        f"{process_wall:.3f} s), {lines} stdout lines")
+
+    # warm-up: CUDA context, allocator, pinned-memory pool
+    _port_gassembler(torch, path, kf.ARGS + ["--max_regions", "8"])
+
+    # the JAX window loop would gather cached regions again here: a
+    # prefetch for an uncached (oversized) region with its successor cached
+    cache_skips = 0
+    prefetch = port_gas.Assembler.prefetch_device_sw
+
+    def watched(self, regions, idx):
+        nonlocal cache_skips
+        if (idx + 1 < len(regions) and id(regions[idx]) not in self._sw_cache
+                and id(regions[idx + 1]) in self._sw_cache):
+            cache_skips += 1
+        return prefetch(self, regions, idx)
+
+    port_gas.Assembler.prefetch_device_sw = watched
+    try:
+        sw_fill_lanes_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rc, out, err, wall = _port_gassembler(torch, path, kf.ARGS)
+        launches = sw_fill_lanes_cuda.launches
+    finally:
+        port_gas.Assembler.prefetch_device_sw = prefetch
+    log(f"katk main path: port gassembler on CUDA, {n_regions} regions, "
+        f"main() wall {wall:.3f} s ({n_regions / wall:.1f} regions/s), "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"kernel C launches {launches}, prefetches past cached regions "
+        f"{cache_skips} (the oracle ran in a fresh process: its wall is "
+        f"not comparable, see PERF.md)")
+    check(rc == 0, f"port gassembler exited {rc}")
+    check(out == want.stdout, "port gassembler stdout differs from the JAX "
+                              "host route")
+    check(err == want.stderr, f"port gassembler stderr differs from the JAX "
+                              f"host route: {err[-500:]!r} vs "
+                              f"{want.stderr[-500:]!r}")
+    log(f"katk: stdout ({len(out)} bytes) and stderr ({len(err)} bytes) "
+        f"byte-identical to the JAX host route")
+    check(0 < launches < n_regions, f"kernel C launches {launches} not in "
+                                    f"1..{n_regions - 1}")
+    check(cache_skips > 0, "the oversized region never followed a cached "
+                           "window: the cache skip was not exercised")
+    return launches, inputs
+
+
+def phase_shared(torch, inputs) -> int:
+    """Kernel D's entry point over the reads of SHARED_REGIONS regions,
+    each equal to kernel C's entry on the same input. Returns D's
+    launches."""
+    from genometester4_tpu_torch.ops.swalign_cuda import (
+        sw_fill_shared_cuda, sw_matrices_batch_device, sw_pallas_matrices)
+
+    batch = inputs[2:2 + SHARED_REGIONS]
+    sw_fill_shared_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [sw_pallas_matrices(ref, reads, device="cuda")
+           for ref, reads in batch]
+    wall = time.perf_counter() - t0
+    launches = sw_fill_shared_cuda.launches
+    n_reads = sum(len(reads) for _, reads in batch)
+    log(f"shared path: sw_pallas_matrices (kernel D) over {len(batch)} "
+        f"regions, {n_reads} reads, wall {wall:.3f} s, launches {launches}")
+    check(launches == len(batch), "kernel D did not run once per region")
+    for (ref, reads), mats in zip(batch, got):
+        for a, b in zip(mats, sw_matrices_batch_device(ref, reads,
+                                                       device="cuda")):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  "kernel D's entry differs from kernel C's")
+    log("shared: every matrix equal to kernel C's entry")
+    return launches
+
+
+def _sw_case(rng, B, n, m, ragged):
+    """Codes with 2% N; with ``ragged``, per-lane reference lengths and
+    reads padded with 6 past a random length."""
+    refs = rng.integers(0, 4, (B, n)).astype(np.int8)
+    refs[rng.random((B, n)) < 0.02] = 4
+    reads = rng.integers(0, 4, (B, m)).astype(np.int8)
+    reads[rng.random((B, m)) < 0.02] = 4
+    nvec = np.full(B, n, np.int32)
+    if ragged:
+        nvec = rng.integers(1, n + 1, B).astype(np.int32)
+        mlen = rng.integers(max(1, m - 52), m + 1, B)
+        reads[np.arange(m)[None, :] >= mlen[:, None]] = 6
+    return refs, reads, nvec
+
+
+def phase_sw_kernels(torch, seed: int) -> dict:
+    """Kernels C and D against ``sw_fill`` on the card, at the shapes of
+    their paths and at a shape whose gap lengths wrap as int8."""
+    from genometester4_tpu_torch.ops.swalign import sw_fill
+    from genometester4_tpu_torch.ops.swalign_cuda import (
+        sw_fill_lanes_cuda, sw_fill_shared_cuda)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    res = {}
+
+    def err_of(got, want):
+        torch.cuda.synchronize()
+        return max(max_abs_err(torch, a, b) for a, b in zip(got, want))
+
+    for name, shape in (("sw_lanes", SW_LANES_SHAPE),
+                        ("sw_shared", SW_SHARED_SHAPE)):
+        B, n, m = shape
+        lanes = name == "sw_lanes"
+        refs, reads, nvec = _sw_case(rng, B, n, m, ragged=lanes)
+        refs_t, reads_t, nvec_t = (torch.from_numpy(a).to(dev)
+                                   for a in (refs, reads, nvec))
+        if lanes:
+            def kernel():
+                return sw_fill_lanes_cuda(refs_t, reads_t, nvec_t)
+        else:
+            ref_t = refs_t[0].contiguous()
+            refs_t = ref_t.expand(B, -1)
+
+            def kernel():
+                return sw_fill_shared_cuda(ref_t, reads_t)
+
+        def plain():
+            return sw_fill(refs_t, reads_t, nvec_t)
+
+        err = err_of(kernel(), plain())
+        check(err == 0, f"{name} kernel != plain at {shape} (max abs err "
+                        f"{err})")
+        ms = median_ms(torch, kernel, 20)
+        pms = median_ms(torch, plain, 3)
+        log(f"kernel {name} B={B} n={n} m={m}: {ms:.4f} ms   plain "
+            f"{pms:.4f} ms   equal bits")
+        res[name] = [err, ms, pms]
+
+    # gaps past 127: the int8 wrap of gap lengths in sx and sy
+    n = m = 300
+    ref = rng.integers(0, 4, n).astype(np.int8)
+    reads = np.stack([np.concatenate([ref[:140], rng.integers(0, 4, 160)]),
+                      np.concatenate([rng.integers(0, 4, 10), ref[:150],
+                                      rng.integers(0, 4, 140)])])
+    reads = reads.astype(np.int8)
+    ref_t = torch.from_numpy(ref).to(dev)
+    reads_t = torch.from_numpy(reads).to(dev)
+    refs_t = ref_t.expand(2, -1)
+    nvec_t = torch.full((2,), n, dtype=torch.int32, device=dev)
+    want = sw_fill(refs_t, reads_t, nvec_t)
+    check(int(want[1].min()) == -128, "wrap case does not wrap")
+    for name, got in (("sw_lanes", sw_fill_lanes_cuda(
+            refs_t.contiguous(), reads_t, nvec_t)),
+            ("sw_shared", sw_fill_shared_cuda(ref_t, reads_t))):
+        err = err_of(got, want)
+        check(err == 0, f"{name} kernel != plain where gap lengths wrap "
+                        f"(max abs err {err})")
+        res[name][0] = max(res[name][0], err)
+    log("kernels sw_lanes and sw_shared: equal bits where gap lengths wrap "
+        "(n = m = 300)")
+    return res
+
+
 def run(args) -> None:
     import torch
 
@@ -301,10 +532,18 @@ def run(args) -> None:
         check(same, "port .list differs from the numpy oracle")
         del bases
 
-    # 4. kernels against their plain versions
-    res = phase_kernels(torch, args.seed)
+    with tempfile.TemporaryDirectory(prefix="gt4_chip_smoke_katk_") as tmp:
+        # 4. katk: gassembler's region alignment through kernel C
+        launches["sw_lanes"], inputs = phase_katk(torch, tmp, args.seed)
 
-    # 5. card identity
+    # 5. kernel D's own path
+    launches["sw_shared"] = phase_shared(torch, inputs)
+
+    # 6. kernels against their plain versions
+    res = phase_kernels(torch, args.seed)
+    res.update(phase_sw_kernels(torch, args.seed))
+
+    # 7. card identity
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -316,7 +555,11 @@ def run(args) -> None:
             ("extract", "genometester4_tpu_torch/csrc/extract.cu",
              "genometester4_tpu/ops/extract_pallas.py:55"),
             ("run_marks", "genometester4_tpu_torch/csrc/runmarks.cu",
-             "genometester4_tpu/ops/runmarks_pallas.py:32")):
+             "genometester4_tpu/ops/runmarks_pallas.py:32"),
+            ("sw_lanes", "genometester4_tpu_torch/csrc/swalign.cu",
+             "genometester4_tpu/ops/swalign_pallas.py:182"),
+            ("sw_shared", "genometester4_tpu_torch/csrc/swalign.cu",
+             "genometester4_tpu/ops/swalign_pallas.py:46")):
         err, ms, pms = res[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],

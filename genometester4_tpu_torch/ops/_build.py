@@ -2,10 +2,12 @@
 
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
 compiles them in seconds; ``torch.utils.cpp_extension.load`` would spend
-minutes on PyTorch's headers. The shared library lands in ``_build/``
-beside the package, named by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads at once. Nothing is built or
-loaded at import time: the first kernel launch calls ``load_library``.
+minutes on PyTorch's headers. One ``nvcc`` per source runs at the same
+time, then one more links the objects. The shared library lands in
+``_build/`` beside the package, named by a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one loads at once. Nothing
+is built or loaded at import time: the first kernel launch calls
+``load_library``.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -35,6 +38,12 @@ _SIGNATURES = {
     # keys, head, tail, stats, n, n_valid, stream
     "gt4_run_marks": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                       _P],
+    # refs, reads, nvec, score, sx, sy, B, n, m, stream
+    "gt4_sw_lanes": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, _P],
+    # ref, reads, score, sx, sy, B, n, m, stream
+    "gt4_sw_shared": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, _P],
 }
 
 
@@ -77,13 +86,37 @@ def build() -> tuple[str, str]:
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, path)  # atomic: no process loads a half-written file
-    return path, r.stdout + r.stderr
+    nvcc = _nvcc()
+    stem = f"{path[:-3]}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = f"{stem}.{os.path.basename(src)}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report, failed = [], []
+    for src, obj, proc in jobs:
+        out = proc.communicate()[0]
+        report.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n"
+                          f"{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = f"{stem}.so"
+        r = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(tmp, path)  # atomic: no process loads a half-written file
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return path, "".join(report)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,0 +1,135 @@
+"""A KATK gassembler workload made from a seed, and the JAX package's CLIs
+run as its oracle.
+
+``chip_smoke.py`` (its katk phase), ``tools.profile_gassembler`` and the
+tests build their gassembler input here, so the fixture the card runs is
+the one the CPU tests rehearse at a smaller size:
+
+    inputs = write_katk_fixture(path, seed)   # reads.fq, db.txt, regions.txt
+    proc, _ = jax_package_cli(path, "gmer_counter", INDEX_ARGS,
+                              GT4_TPU_COUNT_IMPL="host")   # -> db.idx
+    proc, wall = jax_package_cli(path, "gassembler", ARGS,
+                                 GT4_TPU_DEVICE_SW="0")    # host-route oracle
+
+The JAX package's host routes import no jax, so this runs on a machine
+without it.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+REGIONS = 1000       # 200 bp regions (= max_reference_length), 1 kb apart
+REGION_BP = 200
+SPACING = 1000
+READ_BP = 150
+FLANK = 150          # reads lie within this many bp of their region
+DEPTH = 40           # diploid read depth
+DENSE_DEPTH = 120    # the two regions around the oversized one
+INDEX_ARGS = ["-db", "db.txt", "--compile_index", "db.idx", "--num_threads",
+              "1", "reads.fq"]
+ARGS = ["--dbi", "db.idx", "--region_file", "regions.txt", "--num_threads",
+        "1", "--coverage", "40", "--sex", "female"]
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def write_katk_fixture(path: str, seed: int, n_regions: int = REGIONS):
+    """KATK gassembler input in ``path``: reads.fq, db.txt, regions.txt.
+
+    One chromosome with ``n_regions`` exome-style regions of 200 bp, 1 kb
+    apart, each with anchor 25-mers every 30 bp (as ``bench.py:199-248``).
+    Reads of 150 bp come only from each region's window of +-150 bp, at
+    40x diploid depth, with 0.2% substitutions and half of them reverse
+    complemented. The second haplotype carries a het SNV in every region
+    and a het 2 bp deletion in every tenth. The first two regions have 3x
+    the depth (more than 200 unique reads each), and an oversized region
+    (300 bp, over max_reference_length, with no reads) sits between them.
+
+    Returns, per region, (reference codes int8[200], forward read codes
+    int8[B, 150]) with A C G T = 0..3.
+    """
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[alphabet] = np.frombuffer(b"TGCA", np.uint8)
+    lut = np.zeros(256, np.int8)
+    lut[alphabet] = np.arange(4, dtype=np.int8)
+    genome = rng.choice(alphabet, size=(n_regions + 1) * SPACING)
+    regions, dblines, fastq, inputs = [], [], [], []
+
+    def add_region(start, length, tag):
+        ref = genome[start:start + length]
+        kmers = [genome[p:p + 25].tobytes().decode()
+                 for p in range(start + 5, start + length - 30, 30)]
+        dblines.extend(f"{tag}_{i}\t1\t{km}" for i, km in enumerate(kmers))
+        regions.append(f"1\t{start}\t{start + length}\t"
+                       f"{ref.tobytes().decode()}\t" + "\t".join(kmers))
+
+    for r in range(n_regions):
+        start = SPACING * (r + 1)
+        add_region(start, REGION_BP, f"R{r}")
+        if r == 0:   # oversized, between the two dense regions
+            add_region(start + 450, 300, "O")
+        lo, hi = start - FLANK, start + REGION_BP + FLANK
+        hap1 = genome[lo:hi]
+        hap2 = hap1.copy()
+        snv = FLANK + 100
+        hap2[snv] = alphabet[(lut[hap2[snv]] + 1) % 4]
+        if r % 10 == 0:
+            cut = FLANK + 150
+            hap2 = np.concatenate([hap2[:cut], hap2[cut + 2:]])
+        depth = DENSE_DEPTH if r < 2 else DEPTH
+        n_reads = depth * (hi - lo) // READ_BP
+        reads = []
+        for h, hap in enumerate((hap1, hap2)):
+            k = n_reads // 2 + (n_reads % 2) * h
+            at = rng.integers(0, len(hap) - READ_BP + 1, k)
+            reads.append(hap[at[:, None] + np.arange(READ_BP)])
+        reads = np.concatenate(reads)
+        err = rng.random(reads.shape) < 0.002
+        reads[err] = alphabet[rng.integers(0, 4, int(err.sum()))]
+        inputs.append((lut[genome[start:start + REGION_BP]], lut[reads]))
+        flip = rng.random(len(reads)) < 0.5
+        reads[flip] = comp[reads[flip]][:, ::-1]
+        for i, seq in enumerate(reads):
+            fastq.append(b"@r%d_%d\n%s\n+\n%s\n" % (
+                r, i, seq.tobytes(), b"I" * READ_BP))
+    with open(os.path.join(path, "reads.fq"), "wb") as f:
+        f.write(b"".join(fastq))
+    with open(os.path.join(path, "db.txt"), "w") as f:
+        f.write("\n".join(dblines) + "\n")
+    with open(os.path.join(path, "regions.txt"), "w") as f:
+        f.write("\n".join(regions) + "\n")
+    return inputs
+
+
+def jax_package_cli(path: str, module: str, args: list, **env):
+    """Run a CLI of the JAX package on its host route in a subprocess in
+    ``path`` (``JAX_PLATFORMS=cpu``: its host routes import no jax).
+
+    Returns (the finished process, the wall of the CLI's ``main`` in s,
+    interpreter start and imports left out, or None if it raised)."""
+    wall_file = os.path.join(path, ".main_wall")
+    code = ("import sys, time\n"
+            f"from genometester4_tpu.cli.{module} import main\n"
+            "t = time.perf_counter()\n"
+            "rc = main(sys.argv[2:])\n"
+            "with open(sys.argv[1], 'w') as f:\n"
+            "    f.write(repr(time.perf_counter() - t))\n"
+            "sys.exit(rc)\n")
+    r = subprocess.run(
+        [sys.executable, "-c", code, wall_file, *args], cwd=path,
+        capture_output=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu",
+             **env})
+    wall = None
+    if os.path.exists(wall_file):
+        with open(wall_file) as f:
+            wall = float(f.read())
+        os.remove(wall_file)
+    return r, wall

@@ -1,0 +1,187 @@
+"""Where the time goes in the port's gassembler route.
+
+    python -m genometester4_tpu_torch.tools.profile_gassembler [--seed 44]
+
+Run from the repository root on a machine with one CUDA GPU. It builds the
+KATK fixture of ``chip_smoke.py``'s katk phase (``tools.katk_fixture``,
+from --seed) and its read index, then prints:
+
+1. wall    ``main()`` wall of the JAX package's host route
+           (``GT4_TPU_DEVICE_SW=0``: native C fill, traceback and filters
+           fused per region) and of the port on CUDA, 3 warm runs each, in
+           turns, in this one process. The port's stdout must equal the
+           host route's.
+2. host    one port run under cProfile: cumulative seconds of the
+           functions each stage of a region runs.
+3. device  one port run under ``torch.profiler``: the card's busy time
+           (union of its activity intervals) and share of the wall, kernel
+           C's time and launches, and the copies.
+
+Exits non-zero when CUDA is missing or the outputs differ.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import cProfile
+import io
+import os
+import pstats
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from genometester4_tpu.cli.gassembler import main as host_main
+from genometester4_tpu_torch.cli.gassembler import main as port_main
+from genometester4_tpu_torch.tools import katk_fixture as kf
+
+RUNS = 3
+# (file, function) whose cumulative time the cProfile'd port run reports
+STAGES = [
+    ("genometester4_tpu/pipelines/gassemble.py", "get_unique_reads"),
+    ("genometester4_tpu/pipelines/gassemble.py", "get_read_sequences"),
+    ("genometester4_tpu_torch/pipelines/gassemble.py", "prefetch_device_sw"),
+    ("genometester4_tpu_torch/ops/swalign_cuda.py",
+     "sw_matrices_batch_device_multi"),
+    ("genometester4_tpu_torch/ops/swalign_cuda.py", "_to_numpy"),
+    ("genometester4_tpu/pipelines/gassemble.py", "align_reads"),
+    ("genometester4_tpu/ops/swalign.py", "sw_traceback"),
+    ("genometester4_tpu/pipelines/gassemble.py", "count_divergent"),
+    ("genometester4_tpu/pipelines/gassemble.py", "create_gapped_alignment"),
+    ("genometester4_tpu/pipelines/gassemble.py", "_group_phase"),
+    ("genometester4_tpu/pipelines/gassemble.py", "_recalculate_and_call"),
+]
+
+
+def timed(main, args, **kw):
+    """(stdout, main() wall in s to a synchronize)."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = main(args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc:
+        raise SystemExit(f"gassembler exited {rc}")
+    return out.getvalue(), wall
+
+
+def host(args):
+    os.environ["GT4_TPU_DEVICE_SW"] = "0"
+    try:
+        return timed(host_main, args)
+    finally:
+        del os.environ["GT4_TPU_DEVICE_SW"]
+
+
+def port(args):
+    return timed(port_main, args, device="cuda")
+
+
+def device_busy(prof) -> dict:
+    """Busy ms of the card (union of its activity intervals) and the
+    summed ms of kernel C, of copies each way and of everything else."""
+    spans = []
+    kinds = {"sw_lanes": 0.0, "dtoh": 0.0, "htod": 0.0, "other": 0.0}
+    for e in prof.events():
+        # the profiler's own buffer setup shows up as a device activity
+        if (e.device_type != DeviceType.CUDA
+                or e.name == "Activity Buffer Request"):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        kind = ("sw_lanes" if "sw_lanes_kernel" in e.name else
+                "dtoh" if e.name.startswith("Memcpy DtoH") else
+                "htod" if e.name.startswith("Memcpy HtoD") else "other")
+        kinds[kind] += e.time_range.elapsed_us() / 1e3
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"busy": busy / 1e3, **kinds}
+
+
+def run(seed: int) -> None:
+    with tempfile.TemporaryDirectory(prefix="gt4_profile_gasm_") as tmp:
+        kf.write_katk_fixture(tmp, seed)
+        r, _ = kf.jax_package_cli(tmp, "gmer_counter", kf.INDEX_ARGS,
+                                  GT4_TPU_COUNT_IMPL="host")
+        if r.returncode:
+            raise SystemExit(r.stderr.decode(errors="replace"))
+        old = os.getcwd()
+        os.chdir(tmp)
+        try:
+            warm = kf.ARGS + ["--max_regions", "8"]
+            host(warm)
+            port(warm)
+            walls = {"host": [], "port": []}
+            outs = set()
+            for i in range(RUNS):
+                for name in (("host", "port") if i % 2 == 0
+                             else ("port", "host")):
+                    out, wall = (host if name == "host" else port)(kf.ARGS)
+                    outs.add(out)
+                    walls[name].append(wall)
+            if len(outs) != 1:
+                raise SystemExit("port stdout differs from the host route's")
+            for name, w in walls.items():
+                print(f"wall {name}: main() s over {RUNS} warm runs in "
+                      f"turns: " + " ".join(f"{x:.4f}" for x in w)
+                      + f"; median {sorted(w)[len(w) // 2]:.4f}", flush=True)
+
+            prof = cProfile.Profile()
+            prof.enable()
+            _, wall = port(kf.ARGS)
+            prof.disable()
+            stats = pstats.Stats(prof).stats
+            print(f"host: port run under cProfile, wall {wall:.4f} s; "
+                  f"cumulative s per function:")
+            for path, func in STAGES:
+                cum = sum(v[3] for (f, _, n), v in stats.items()
+                          if n == func and f.endswith(path))
+                calls = sum(v[1] for (f, _, n), v in stats.items()
+                            if n == func and f.endswith(path))
+                print(f"  {path}:{func} {cum:.4f} ({calls} calls)")
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, wall = port(kf.ARGS)
+            busy = device_busy(prof)
+            launches = sum(e.count for e in prof.key_averages()
+                           if "sw_lanes_kernel" in e.key)
+            print(f"device: port run under torch.profiler, wall {wall:.4f} "
+                  f"s; card busy {busy['busy']:.3f} ms = "
+                  f"{busy['busy'] / 1e3 / wall:.4f} of the wall; kernel C "
+                  f"{busy['sw_lanes']:.3f} ms in {launches} launches, DtoH "
+                  f"copies {busy['dtoh']:.3f} ms, HtoD copies "
+                  f"{busy['htod']:.3f} ms, other {busy['other']:.3f} ms")
+        finally:
+            os.chdir(old)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=44)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_gassembler: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{smi.stdout.strip()}", flush=True)
+    run(args.seed)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

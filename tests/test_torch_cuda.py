@@ -15,6 +15,9 @@ from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
 from genometester4_tpu_torch.ops.kmers import extract_kmers
 from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
 from genometester4_tpu_torch.ops.sortcount import count_unique, run_marks
+from genometester4_tpu_torch.ops.swalign import sw_fill
+from genometester4_tpu_torch.ops.swalign_cuda import (sw_fill_lanes_cuda,
+                                                      sw_fill_shared_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +117,131 @@ def test_wrappers_reject_bad_tensors(cuda):
         run_marks_cuda(keys.to(torch.int32), 1)
     with pytest.raises(ValueError, match="n_valid"):
         run_marks_cuda(keys, 65)
+
+
+def _sw_inputs(seed, B, n, m):
+    """Codes with 2% N, reads padded with 6 past a random length, per-lane
+    reference lengths from -1 to n + 2 (out of range clamps)."""
+    rng = np.random.default_rng(seed)
+    refs = rng.integers(0, 4, (B, n)).astype(np.int8)
+    refs[rng.random((B, n)) < 0.02] = 4
+    reads = rng.integers(0, 4, (B, m)).astype(np.int8)
+    reads[rng.random((B, m)) < 0.02] = 4
+    mlen = rng.integers(0, m + 1, B)
+    reads[np.arange(m)[None, :] >= mlen[:, None]] = 6
+    nvec = rng.integers(-1, n + 3, B).astype(np.int32)
+    return (torch.from_numpy(refs), torch.from_numpy(reads),
+            torch.from_numpy(nvec))
+
+
+def _wrap_inputs():
+    """Two reads whose best paths open gaps longer than 127."""
+    rng = np.random.default_rng(127)
+    ref = rng.integers(0, 4, 300).astype(np.int8)
+    reads = np.stack([np.concatenate([ref[:140], rng.integers(0, 4, 160)]),
+                      np.concatenate([rng.integers(0, 4, 10), ref[:150],
+                                      rng.integers(0, 4, 140)])])
+    return torch.from_numpy(ref), torch.from_numpy(reads.astype(np.int8))
+
+
+def _assert_sw_equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("B,n,m", [(1, 1, 1), (1, 200, 152), (31, 41, 33),
+                                   (33, 1, 17), (70, 17, 1), (130, 64, 100),
+                                   (512, 200, 152), (3, 0, 5)])
+def test_sw_lanes_kernel_equals_plain(cuda, B, n, m):
+    """Kernel C against sw_fill: n or m of 1, m not a multiple of 32, B
+    not a multiple of 32, the gassembler window shape."""
+    refs, reads, nvec = _sw_inputs(B * 7 + n + m, B, n, m)
+    got = sw_fill_lanes_cuda(refs.to(cuda), reads.to(cuda), nvec.to(cuda))
+    _assert_sw_equal(got, sw_fill(refs, reads, nvec))
+
+
+@pytest.mark.parametrize("B,n,m", [(1, 1, 1), (128, 200, 150), (31, 41, 33),
+                                   (33, 1, 17), (70, 17, 1), (5, 7, 1023),
+                                   (2, 0, 5)])
+def test_sw_shared_kernel_equals_plain(cuda, B, n, m):
+    """Kernel D against sw_fill with one reference for all reads."""
+    refs, reads, _ = _sw_inputs(B * 11 + n + m, B, n, m)
+    ref = refs[0] if B else torch.zeros(n, dtype=torch.int8)
+    got = sw_fill_shared_cuda(ref.to(cuda), reads.to(cuda))
+    want = sw_fill(ref.expand(B, -1), reads,
+                   torch.full((B,), n, dtype=torch.int32))
+    _assert_sw_equal(got, want)
+
+
+def test_sw_kernels_int8_gap_length_wrap(cuda):
+    ref, reads = _wrap_inputs()
+    refs = ref.expand(2, -1)
+    nvec = torch.full((2,), 300, dtype=torch.int32)
+    want = sw_fill(refs, reads, nvec)
+    assert int(want[1].min()) == -128 and int(want[2].min()) == -128
+    _assert_sw_equal(sw_fill_lanes_cuda(refs.contiguous().to(cuda),
+                                        reads.to(cuda), nvec.to(cuda)), want)
+    _assert_sw_equal(sw_fill_shared_cuda(ref.to(cuda), reads.to(cuda)), want)
+
+
+def test_sw_wrappers_reject_bad_tensors(cuda):
+    refs = torch.zeros((4, 10), dtype=torch.int8, device=cuda)
+    reads = torch.zeros((4, 8), dtype=torch.int8, device=cuda)
+    nvec = torch.full((4,), 10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sw_fill_lanes_cuda(refs[:, ::2], reads, nvec)
+    with pytest.raises(ValueError, match="int8"):
+        sw_fill_lanes_cuda(refs.to(torch.int16), reads, nvec)
+    with pytest.raises(ValueError, match="int32"):
+        sw_fill_lanes_cuda(refs, reads, nvec.to(torch.int64))
+    with pytest.raises(ValueError, match="batch sizes"):
+        sw_fill_lanes_cuda(refs, reads[:3], nvec)
+    with pytest.raises(ValueError, match="one device"):
+        sw_fill_lanes_cuda(refs, reads, nvec.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        sw_fill_shared_cuda(refs[0, ::2], reads)
+    with pytest.raises(ValueError, match="1-D int8"):
+        sw_fill_shared_cuda(refs, reads)
+    with pytest.raises(ValueError, match="columns"):
+        sw_fill_shared_cuda(refs[0], torch.zeros((2, 1024), dtype=torch.int8,
+                                                 device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        sw_fill_shared_cuda(refs[0].cpu(), reads.cpu())
+
+
+def test_gassembler_cuda_equals_cpu(cuda, tmp_path):
+    """The port's gassembler on CUDA (kernel C) and on the CPU (sw_fill)
+    over the KATK fixture of chip_smoke.py at 12 regions: same stdout and
+    stderr, kernel C launched in fewer launches than regions."""
+    import contextlib
+    import io
+    import os
+
+    from genometester4_tpu_torch.cli.gassembler import main
+    from genometester4_tpu_torch.tools import katk_fixture as kf
+
+    kf.write_katk_fixture(str(tmp_path), seed=8, n_regions=12)
+    r, _ = kf.jax_package_cli(
+        str(tmp_path), "gmer_counter", kf.INDEX_ARGS,
+        GT4_TPU_COUNT_IMPL="host")
+    assert r.returncode == 0, r.stderr
+    results = {}
+    old = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        for device in ("cuda", "cpu"):
+            before = sw_fill_lanes_cuda.launches
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = main(kf.ARGS, device=device)
+            results[device] = (rc, out.getvalue(), err.getvalue(),
+                               sw_fill_lanes_cuda.launches - before)
+    finally:
+        os.chdir(old)
+        (tmp_path / "db.idx").unlink()
+    assert results["cuda"][:3] == results["cpu"][:3]
+    assert results["cuda"][0] == 0 and results["cpu"][3] == 0
+    assert 0 < results["cuda"][3] < 13
