@@ -14,6 +14,12 @@ Run from the repository root. Phases, each of which must pass:
            merge run. Both kernels' launch counters must move.
 3. oracle  numpy alone (no torch) counts the same 25-mers with np.unique;
            its .list bytes must equal the port's.
+3b. mesh   glistmaker's mesh counting route on the same FASTA: ``make_list``
+           with ``mesh=make_mesh(8, dp=2, devices=["cuda:0"] * 8)`` (dp=2 x
+           kp=4 slots on the one card, S = 8 sources per column, one slab),
+           once with GT4_TPU_MESH_MERGE=resort and once with =bitonic. Both
+           .list files must equal phase 2's; kernels A and B must launch in
+           both runs, kernel E (merge runs) in the bitonic run only.
 4. katk    KATK gassembler through the port's CLI on CUDA, over 1,000
            exome-style 200 bp regions (plus one oversized region between
            two regions of more than 200 reads) with 150 bp reads at 40x
@@ -26,7 +32,8 @@ Run from the repository root. Phases, each of which must pass:
 5. shared  kernel D's entry point (``sw_pallas_matrices``) over the reads
            of 64 regions; equal to kernel C's entry on the same input.
 6. kernels each CUDA kernel against its plain PyTorch version on the card
-           at the shapes of its path: equal bits required (integer
+           at the shapes of its path (kernel E also at L = 1 and at tied
+           keys with 2L below its tile): equal bits required (integer
            contract, tolerance 0); median times of both are printed.
 7. card    the card's name and power limit from nvidia-smi.
 
@@ -60,6 +67,10 @@ EXTRACT_KS = (1, 16, 17, 25, 31, 32)
 SHARED_REGIONS = 64      # kernel D's path: regions for sw_pallas_matrices
 SW_LANES_SHAPE = (512, 200, 152)   # kernel C: window of reads, n_cap, m_cap
 SW_SHARED_SHAPE = (128, 200, 150)  # kernel D: reads, n, m
+# kernel E at the mesh route's first merge round: S2 * cap2 = 8 * 2^23 keys
+# in runs of cap2, each run's tail (past cap ~ 6.29 M) the INT64_MAX padding
+MERGE_N, MERGE_L, MERGE_CAP = 1 << 26, 1 << 23, 6_291_438
+MESH_SLOTS, MESH_DP = 8, 2
 
 
 class SmokeFailure(Exception):
@@ -247,6 +258,110 @@ def phase_kernels(torch, seed: int) -> dict:
             res["run_marks"] = [0, ms, pms]
     res["run_marks"][0] = err_b
     return res
+
+
+def phase_merge_kernel(torch, seed: int) -> list:
+    """Kernel E against ``merge_runs`` on the card: keys, positions and a
+    gathered int64 payload bit for bit at the mesh route's shape, at L = 1
+    and at tied keys with 2L below the 2048-slot tile. Returns [max abs
+    err, ms, plain ms] at the path's shape."""
+    from genometester4_tpu_torch.ops.merge_runs import merge_runs
+    from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sentinel = (1 << 63) - 1
+    out = None
+    for name, n, L, card in (("path", MERGE_N, MERGE_L, 1 << 50),
+                             ("L=1", 1 << 20, 1, 1 << 50),
+                             ("ties, 2L=200", 200 * 5000, 100, 5)):
+        keys = torch.randint(0, card, (n // L, L), generator=gen, device=dev)
+        if name == "path":
+            keys[:, MERGE_CAP:] = sentinel
+        keys = torch.sort(keys, dim=1).values.view(-1)
+        payload = torch.randint(0, 1 << 62, (n,), generator=gen, device=dev)
+        got, gpos = merge_runs_cuda(keys, L)
+        want, wpos = merge_runs(keys, L)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(torch, got, want),
+                  max_abs_err(torch, gpos, wpos),
+                  max_abs_err(torch, payload[gpos], payload[wpos]))
+        check(err == 0, f"merge_runs kernel != plain at {name} n={n} L={L} "
+                        f"(max abs err {err})")
+        ms = median_ms(torch, lambda: merge_runs_cuda(keys, L), 20)
+        pms = median_ms(torch, lambda: merge_runs(keys, L), 5)
+        log(f"kernel merge_runs {name} n={n} L={L}: {ms:.4f} ms   plain "
+            f"{pms:.4f} ms   equal bits (keys, positions, int64 payload)")
+        if out is None:
+            out = [err, ms, pms]
+        del keys, payload, got, gpos, want, wpos
+    return out
+
+
+@contextlib.contextmanager
+def mesh_merge(mode: str):
+    """GT4_TPU_MESH_MERGE=mode for the block, restored after it."""
+    old = os.environ.get("GT4_TPU_MESH_MERGE")
+    os.environ["GT4_TPU_MESH_MERGE"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GT4_TPU_MESH_MERGE"]
+        else:
+            os.environ["GT4_TPU_MESH_MERGE"] = old
+
+
+def mesh_slots():
+    from genometester4_tpu_torch.parallel.sharding import make_mesh
+    return make_mesh(MESH_SLOTS, dp=MESH_DP, devices=["cuda:0"] * MESH_SLOTS)
+
+
+def phase_mesh(torch, fa: str, tmp: str, single: str, single_wall: float):
+    """The mesh counting route on the main path's FASTA in both merge
+    modes, each .list equal to the single-chip route's. Returns the
+    launches of the bitonic run."""
+    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
+    from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
+    from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
+    from genometester4_tpu_torch.pipelines.listmaker import make_list
+
+    counters = {"extract": extract_kmers_cuda, "run_marks": run_marks_cuda,
+                "merge_runs": merge_runs_cuda}
+    runs = {}
+    for mode in ("resort", "bitonic"):
+        mesh = mesh_slots()
+        out = os.path.join(tmp, f"mesh_{mode}_{K}.list")
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        phases = io.StringIO()
+        with mesh_merge(mode), contextlib.redirect_stderr(phases):
+            make_list([fa], K, out, device="cuda", mesh=mesh, debug=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for line in phases.getvalue().splitlines():
+            log(f"  mesh ({mode}) -D: {line}")
+        runs[mode] = {name: fn.launches for name, fn in counters.items()}
+        same = filecmp.cmp(out, single, shallow=False)
+        log(f"mesh path ({mode}): make_list dp={MESH_DP} x "
+            f"kp={MESH_SLOTS // MESH_DP} slots on cuda:0, wall {wall:.3f} s "
+            f"(single-chip route {single_wall:.3f} s), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"{runs[mode]}, .list {'identical' if same else 'DIFFERS'}")
+        check(same, f"mesh ({mode}) .list differs from the single-chip "
+                    f"route's")
+        os.remove(out)
+    for mode, n in runs.items():
+        check(n["extract"] > 0 and n["run_marks"] > 0,
+              f"mesh ({mode}) never launched kernel A or B: {n}")
+    check(runs["resort"]["merge_runs"] == 0,
+          "kernel E launched in resort mode")
+    check(runs["bitonic"]["merge_runs"] > 0,
+          "kernel E never launched in bitonic mode")
+    return runs["bitonic"]
 
 
 def _port_gassembler(torch, path: str, args: list):
@@ -493,6 +608,10 @@ def run(args) -> None:
         warm = os.path.join(tmp, "warm.fa")
         write_fasta(warm, genome_bases(args.seed + 1, 300_000))
         make_list([warm], K, os.path.join(tmp, "warm.list"), device="cuda")
+        for mode in ("resort", "bitonic"):
+            with mesh_merge(mode):
+                make_list([warm], K, os.path.join(tmp, "warm.list"),
+                          device="cuda", mesh=mesh_slots())
 
         # 2. main path
         t0 = time.perf_counter()
@@ -530,6 +649,10 @@ def run(args) -> None:
             f"{'identical' if same else 'DIFFER'} "
             f"({os.path.getsize(out)} vs {os.path.getsize(ref)} bytes)")
         check(same, "port .list differs from the numpy oracle")
+
+        # 3b. mesh: the mesh counting route in both merge modes
+        mesh_launches = phase_mesh(torch, fa, tmp, out, wall)
+        launches["merge_runs"] = mesh_launches["merge_runs"]
         del bases
 
     with tempfile.TemporaryDirectory(prefix="gt4_chip_smoke_katk_") as tmp:
@@ -542,6 +665,7 @@ def run(args) -> None:
     # 6. kernels against their plain versions
     res = phase_kernels(torch, args.seed)
     res.update(phase_sw_kernels(torch, args.seed))
+    res["merge_runs"] = phase_merge_kernel(torch, args.seed)
 
     # 7. card identity
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -559,7 +683,9 @@ def run(args) -> None:
             ("sw_lanes", "genometester4_tpu_torch/csrc/swalign.cu",
              "genometester4_tpu/ops/swalign_pallas.py:182"),
             ("sw_shared", "genometester4_tpu_torch/csrc/swalign.cu",
-             "genometester4_tpu/ops/swalign_pallas.py:46")):
+             "genometester4_tpu/ops/swalign_pallas.py:46"),
+            ("merge_runs", "genometester4_tpu_torch/csrc/merge_runs.cu",
+             "genometester4_tpu/ops/bitonic_merge_pallas.py:47")):
         err, ms, pms = res[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],

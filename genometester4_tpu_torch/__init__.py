@@ -18,10 +18,13 @@ every valid key (``ops.encode``).
 Sub-packages
 ------------
 utils      device resolution
-ops        encode helpers, k-mer extraction and sort + run counting, each
-           hand-written CUDA kernel beside its plain PyTorch version
+ops        encode helpers, k-mer extraction, sort + run counting, SW fills
+           and the merge of sorted runs, each hand-written CUDA kernel
+           beside its plain PyTorch version
 csrc       the CUDA C++ kernel sources, built with nvcc at first use
-pipelines  glistmaker's device counting route (``make_list``)
+parallel   glistmaker's mesh counting route (``sharding``)
+pipelines  glistmaker's device counting route (``make_list``) and
+           gassembler's device SW fills
 """
 
 __version__ = "0.1.0"

@@ -9,6 +9,10 @@ port's, so the regions' SW fills run on the device (CUDA by default; no
 CUDA raises when the first Assembler is built). As in the JAX package,
 the device route runs under ``--num_threads 1``: more threads fork
 workers, which align on the host.
+
+Importing this module, and runs that never build an ``Assembler`` (``-h``,
+bad flags), import no torch: the port's ``Assembler`` is imported when the
+first one is built.
 """
 
 from __future__ import annotations
@@ -17,14 +21,18 @@ import functools
 import sys
 
 from genometester4_tpu.cli import gassembler as _cli
-from genometester4_tpu_torch.pipelines.gassemble import Assembler
+
+
+def _port_assembler(*args, device=None, **kwargs):
+    from genometester4_tpu_torch.pipelines.gassemble import Assembler
+    return Assembler(*args, device=device, **kwargs)
 
 
 def main(argv=None, device=None) -> int:
     """Run the JAX CLI's ``main(argv)`` with the port's ``Assembler`` on
     ``device`` bound to the CLI module's name for the call."""
     saved = _cli.Assembler
-    _cli.Assembler = functools.partial(Assembler, device=device)
+    _cli.Assembler = functools.partial(_port_assembler, device=device)
     try:
         return _cli.main(argv)
     finally:

@@ -44,6 +44,9 @@ _SIGNATURES = {
     # ref, reads, score, sx, sy, B, n, m, stream
     "gt4_sw_shared": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, _P],
+    # keys, out, pos, splits, n, run length, stream
+    "gt4_merge_runs": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                       _P],
 }
 
 

@@ -1,0 +1,340 @@
+"""glistmaker's mesh counting route: prefix-sharded k-mer counting over a
+("dp", "kp") mesh (port of the counting half of
+``genometester4_tpu/parallel/sharding.py``).
+
+The mesh has dp rows and kp columns of slots, each naming a torch device.
+Row r reads its own input chunks; column j owns the j-th of kp equal
+ranges of the word space (its top log2(kp) bits), so the columns' sorted
+outputs concatenate into one sorted list. Per step (dp * kp chunks)::
+
+  per slot     count_chunk: kernel A, torch.sort, kernel B, compaction
+               _route_by_prefix: kp contiguous slices into [kp, cap] buckets
+  exchange     column j takes bucket j of every slot (JAX: all_to_all over
+               kp, then all_gather over dp) as tensor moves to the device of
+               the column's row-0 slot: peer copies between cards, no-ops
+               within one
+  per column   merge_gathered_sources over the S = dp * kp sources: the
+               identity (S = 1), a weighted re-sort (``resort``, the
+               default) or log2(S2) merge rounds through kernel E
+               (``bitonic``), chosen by GT4_TPU_MESH_MERGE as in JAX
+
+JAX's result is dp-replicated, so each column merges once, on its row-0
+slot, with the same output. A device may fill several slots (a mesh of 8
+slots on one card, as the JAX tests run 8 virtual CPU devices); the slots
+then run one after another. Multi-process groups (``parallel/multihost``)
+and the mesh set operations are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from genometester4_tpu.parallel.sharding import CAP_FACTOR
+from genometester4_tpu_torch.ops.encode import (SIGN, keys_from_pair,
+                                                u64_from_keys)
+from genometester4_tpu_torch.ops.merge_runs import merge_sorted_runs
+from genometester4_tpu_torch.ops.sortcount import count_unique
+from genometester4_tpu_torch.pipelines.listmaker import (count_chunk,
+                                                         merge_sorted_shards,
+                                                         to_host_counts)
+from genometester4_tpu_torch.utils.device import resolve_device
+
+# key of the all-ones word: above every canonical word (min(w, revcomp) is
+# never all ones), so the bitonic merge's padding sorts last
+SENTINEL = (1 << 63) - 1
+_U32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """dp rows of kp slots; ``devices[r][c]`` is slot (r, c)'s device."""
+    devices: tuple
+
+    @property
+    def shape(self) -> dict:
+        return {"dp": len(self.devices), "kp": len(self.devices[0])}
+
+
+def make_mesh(n_devices: int | None = None, dp: int | None = None,
+              devices=None) -> Mesh:
+    """Build a ("dp", "kp") mesh: over ``devices`` (a list of device names,
+    one per slot, repeats allowed) or every visible CUDA card.
+
+    JAX's rule: without ``dp`` the largest power of two of slots goes to
+    kp and dp takes what is left; kp must be a power of two."""
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = [resolve_device(d) for d in devices]
+    if n_devices is not None:
+        devs = devs[:n_devices]
+    n = len(devs)
+    if n == 0:
+        raise RuntimeError("no device for the mesh: no CUDA card is "
+                           "visible; pass devices=")
+    if dp is None:
+        kp = 1 << (n.bit_length() - 1)
+        dp = n // kp
+    else:
+        kp = n // dp
+    if kp < 1 or kp & (kp - 1):
+        raise ValueError(f"kp={kp} ({n} slots, dp={dp}) is not a power of 2")
+    return Mesh(tuple(tuple(devs[r * kp:(r + 1) * kp]) for r in range(dp)))
+
+
+def _owner_shard(keys: torch.Tensor, k: int, n_shards: int) -> torch.Tensor:
+    """Top log2(n_shards) bits of each key's 2k-bit word: its column.
+    Sharding by the most significant bits keeps shard-major concatenation
+    in .list order."""
+    if n_shards <= 1:
+        return torch.zeros_like(keys)
+    b = n_shards.bit_length() - 1
+    if b > 2 * k:
+        raise ValueError(f"{n_shards} shards need words of at least {b} bits")
+    # int64 >> is arithmetic: mask to the b bits (k = 32 words use bit 63)
+    return ((keys ^ SIGN) >> (2 * k - b)) & (n_shards - 1)
+
+
+def _route_by_prefix(keys: torch.Tensor, counts: torch.Tensor, k: int,
+                     n_shards: int, cap: int):
+    """Sorted unique keys and counts (int64) -> (bucket keys [n_shards,
+    cap], bucket counts [n_shards, cap], per-bucket entries list[int],
+    overflow). Bucket b holds the keys of column b, which are contiguous
+    in the sorted input, in its first min(n_b, cap) slots and zeros after;
+    overflow is any n_b > cap."""
+    owner = _owner_shard(keys, k, n_shards)
+    bounds = torch.searchsorted(
+        owner, torch.arange(n_shards + 1, device=keys.device)).tolist()
+    bn = [bounds[b + 1] - bounds[b] for b in range(n_shards)]
+    bk = keys.new_zeros((n_shards, cap))
+    bc = counts.new_zeros((n_shards, cap))
+    for b in range(n_shards):
+        m = min(bn[b], cap)
+        bk[b, :m] = keys[bounds[b]:bounds[b] + m]
+        bc[b, :m] = counts[bounds[b]:bounds[b] + m]
+    return bk, bc, bn, max(bn) > cap
+
+
+def buckets_from_pairs(bh, bl, bc, bn):
+    """JAX's gathered sources -- (hi, lo, count) u32 [S, cap] and int32
+    valid lengths [S], numpy -- as this module's (keys int64 [S, cap],
+    counts int64 [S, cap], lengths list[int]) on the CPU."""
+    bh = np.asarray(bh)
+    keys = keys_from_pair(bh.ravel(), np.asarray(bl).ravel()).view(bh.shape)
+    counts = torch.from_numpy(np.asarray(bc, np.uint32).astype(np.int64))
+    return keys, counts, [int(x) for x in np.asarray(bn)]
+
+
+def _pad_out(keys, counts, n_uniq: int, merge_cap: int):
+    """JAX's output shapes: the first n_uniq entries, zeros after."""
+    mk = keys.new_zeros(merge_cap)
+    mc = counts.new_zeros(merge_cap)
+    m = min(n_uniq, keys.numel(), merge_cap)
+    mk[:m] = keys[:m]
+    mc[:m] = counts[:m]
+    return mk, mc
+
+
+def merge_gathered_sources(keys, counts, n, *, S: int, S2: int, cap: int,
+                           cap2: int, merge_cap: int,
+                           mode: str | None = None):
+    """Merge S sources, each sorted and deduplicated, into one.
+
+    ``keys``/``counts``: int64 [S, cap], counts below 2^32; ``n``: each
+    source's valid length. Returns (keys int64[merge_cap], counts
+    int64[merge_cap], n_uniq, overflow): the unique keys in the first
+    n_uniq slots, their summed counts wrapped to u32, zero counts after.
+    ``mode`` (default GT4_TPU_MESH_MERGE, as in JAX): ``bitonic`` merges
+    through kernel E, anything else re-sorts; S = 1 is the identity.
+    """
+    if mode is None:
+        mode = os.environ.get("GT4_TPU_MESH_MERGE", "auto")
+    n = [int(x) for x in n]
+    if S == 1:
+        return (*_pad_out(keys[0], counts[0], n[0], merge_cap), n[0], False)
+
+    if mode != "bitonic":
+        # compact the sources in forward order (each write's tail is
+        # overwritten by the next source), then a weighted count
+        offs = np.concatenate([[0], np.cumsum(n)]).tolist()
+        total = offs[S]
+        lim = merge_cap - cap
+        mk = keys.new_zeros(merge_cap)
+        mc = counts.new_zeros(merge_cap)
+        for s in range(S):
+            o = min(offs[s], lim)
+            mk[o:o + cap] = keys[s]
+            mc[o:o + cap] = counts[s]
+        m = min(total, merge_cap)
+        skeys, head, tail, incl, n_uniq = count_unique(mk[:m], mc[:m])
+        tp = incl[torch.nonzero(tail).flatten()]
+        uc = torch.diff(tp, prepend=tp.new_zeros(1)) & _U32
+        return (*_pad_out(skeys[head], uc, n_uniq, merge_cap), n_uniq,
+                total > lim)
+
+    # sentinel tails with count 0, padded to S2 runs of cap2, then
+    # log2(S2) rounds of pairwise merges
+    nt = torch.tensor(n, device=keys.device)
+    vmask = torch.arange(cap, device=keys.device)[None, :] < nt[:, None]
+    sk = torch.full((S2, cap2), SENTINEL, dtype=torch.int64,
+                    device=keys.device)
+    sc = torch.zeros((S2, cap2), dtype=torch.int64, device=keys.device)
+    sk[:S, :cap] = keys.masked_fill(~vmask, SENTINEL)
+    sc[:S, :cap] = counts.masked_fill(~vmask, 0)
+    sk, sc = sk.view(-1), sc.view(-1)
+    L = cap2
+    while L < S2 * cap2:
+        sk, sc = merge_sorted_runs((sk, sc), L)
+        L *= 2
+    # the valid entries lead the stream: truncate before the dedupe
+    total = sum(n)
+    tlen = min(merge_cap, S2 * cap2)
+    sk, sc = sk[:tlen], sc[:tlen]
+    first = torch.ones(tlen, dtype=torch.bool, device=sk.device)
+    first[1:] = sk[1:] != sk[:-1]
+    head = first & (torch.arange(tlen, device=sk.device) < total)
+    # run sums by doubling: a word is in at most S sources, and in a
+    # sorted stream equal endpoints mean an equal span
+    dd = 1
+    while dd < S2:
+        same = torch.zeros(tlen, dtype=torch.bool, device=sk.device)
+        same[:-dd] = sk[dd:] == sk[:-dd]
+        nxt = torch.zeros_like(sc)
+        nxt[:-dd] = sc[dd:]
+        sc = (sc + nxt.masked_fill(~same, 0)) & _U32
+        dd *= 2
+    idx = torch.nonzero(head).flatten()
+    return (*_pad_out(sk[idx], sc[idx], idx.numel(), merge_cap), idx.numel(),
+            total > tlen)
+
+
+def sharded_count_step(mesh: Mesh, k: int, chunk_bases: int,
+                       cap_factor: float = CAP_FACTOR):
+    """The counting step of a mesh (JAX's ``sharded_count_step`` and
+    ``_build_count_step``, with the same cap, merge_cap, S2 and cap2; no
+    memoization: nothing is compiled).
+
+    Returns (fn, cap * kp * dp). ``fn(blocks)`` takes uint8[dp, kp,
+    chunk_bases] (one chunk per slot) and returns (columns, peak bucket
+    fill): per column, its sorted unique (words u64, counts u32) numpy
+    arrays, copied to the host as each column finishes so that its device
+    buffers are free for the next; columns is None when a bucket or a
+    merge overflowed.
+    """
+    dp, kp = mesh.shape["dp"], mesh.shape["kp"]
+    n_windows = chunk_bases - k + 1
+    cap_soft = max(1, int(cap_factor * max(1, n_windows // kp)))
+    # a bucket never holds more than its slot's windows
+    cap = int(min(cap_soft, n_windows))
+    # merge output: 2x the all-unique column load, divided by the CONSTANT
+    # factor so that the overflow retry grows it (sharding.py:343-359)
+    merge_cap = min(2 * dp * kp * cap_soft // CAP_FACTOR, dp * kp * cap) + cap
+    S = dp * kp
+    if S == 1:
+        merge_cap = cap
+    S2 = 1 << max(0, math.ceil(math.log2(S)))
+    cap2 = 1 << max(0, math.ceil(math.log2(max(1, cap))))
+
+    def fn(blocks: np.ndarray):
+        buckets = {}
+        peak = 0
+        for r in range(dp):
+            for c in range(kp):
+                codes = torch.from_numpy(blocks[r, c]).to(mesh.devices[r][c])
+                keys, counts = count_chunk(codes, k)
+                del codes
+                bk, bc, bn, ovf = _route_by_prefix(keys, counts, k, kp, cap)
+                del keys, counts
+                if ovf:
+                    return None, 0
+                buckets[r, c] = (bk, bc, bn)
+                peak = max(peak, max(bn))
+        sources = [buckets[r, c] for r in range(dp) for c in range(kp)]
+        columns = []
+        for j in range(kp):
+            dev = mesh.devices[0][j]
+            keys = torch.stack([bk[j].to(dev) for bk, _, _ in sources])
+            counts = torch.stack([bc[j].to(dev) for _, bc, _ in sources])
+            mk, mc, n_uniq, ovf = merge_gathered_sources(
+                keys, counts, [bn[j] for _, _, bn in sources], S=S, S2=S2,
+                cap=cap, cap2=cap2, merge_cap=merge_cap)
+            del keys, counts
+            if ovf:
+                return None, 0
+            columns.append((u64_from_keys(mk[:n_uniq]),
+                            to_host_counts(mc[:n_uniq])))
+            del mk, mc
+        return columns, peak
+
+    return fn, cap * kp * dp
+
+
+def iter_count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
+                             chunk_bases: int | None = None,
+                             cap_factor="auto",
+                             adapt_state: dict | None = None):
+    """Count the canonical k-mers of a code array on the mesh; yield sorted
+    (words u64, counts u32) numpy buckets in ascending order.
+
+    dp * kp chunks per step, overlapped by k-1 bases, padded with 255. An
+    overflow doubles ``cap_factor`` and runs the step again.
+    ``cap_factor="auto"`` starts from CAP_FACTOR (or ``adapt_state``'s
+    carried factor) and, after each step, shrinks to 1.5x the peak bucket
+    fill once that is below the factor / 1.3 (floor 0.02), storing it in
+    ``adapt_state`` for the caller's next slab. Per column, the steps'
+    results merge with ``merge_sorted_shards``.
+    """
+    dp, kp = mesh.shape["dp"], mesh.shape["kp"]
+    n_dev = dp * kp
+    auto = cap_factor == "auto"
+    if auto:
+        cap_factor = (adapt_state or {}).get("cap_factor", CAP_FACTOR)
+    if chunk_bases is None:
+        chunk_bases = max(1 << 14, len(codes) // n_dev + k)
+        chunk_bases = 1 << math.ceil(math.log2(chunk_bases))
+    fn, _ = sharded_count_step(mesh, k, chunk_bases, cap_factor)
+
+    step = chunk_bases - (k - 1)
+    starts = list(range(0, max(len(codes) - (k - 1), 1), step))
+    shard_results = []   # per step, kp (words, counts)
+    for gi in range(0, len(starts), n_dev):
+        blocks = np.full((n_dev, chunk_bases), 255, np.uint8)
+        for bi, s in enumerate(starts[gi:gi + n_dev]):
+            chunk = codes[s:s + chunk_bases]
+            blocks[bi, :len(chunk)] = chunk
+        blocks = blocks.reshape(dp, kp, chunk_bases)
+        columns, peak = fn(blocks)
+        while columns is None:
+            cap_factor *= 2
+            fn, _ = sharded_count_step(mesh, k, chunk_bases, cap_factor)
+            columns, peak = fn(blocks)
+        if auto:
+            want = 1.5 * max(peak, 1) / max(1, (chunk_bases - k + 1) // kp)
+            if want < cap_factor / 1.3:
+                cap_factor = max(want, 0.02)
+                fn, _ = sharded_count_step(mesh, k, chunk_bases, cap_factor)
+            if adapt_state is not None:
+                adapt_state["cap_factor"] = cap_factor
+        shard_results.append(columns)
+
+    # prefix columns are disjoint ascending word ranges: merging each
+    # column's step results in turn streams the globally sorted list
+    for s in range(kp):
+        yield from merge_sorted_shards([res[s] for res in shard_results],
+                                       device=mesh.devices[0][0])
+
+
+def count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
+                        chunk_bases: int | None = None, cap_factor="auto",
+                        adapt_state: dict | None = None):
+    """Materializing wrapper over iter_count_kmers_sharded."""
+    out = list(iter_count_kmers_sharded(codes, k, mesh, chunk_bases,
+                                        cap_factor, adapt_state))
+    if not out:
+        return np.empty(0, np.uint64), np.empty(0, np.uint32)
+    return (np.concatenate([w for w, _ in out]),
+            np.concatenate([c for _, c in out]))

@@ -12,9 +12,14 @@ Port of the device branch of ``genometester4_tpu/pipelines/listmaker.py``
   -> host prefix-bucketed merge    weighted count_unique per bucket
   -> ListWriter                    genometester4_tpu.formats (reused)
 
+With a mesh (``make_list(mesh=...)``, or by default with more than one
+CUDA card, as in JAX), each slab is counted by the mesh route of
+``parallel.sharding`` instead of ``count_chunks``; the merge and the
+writer are the same.
+
 Output bytes are identical to the JAX package's. Not ported here: the
 host-native route and its cost model (``device`` is explicit instead),
-the multi-device mesh, multihost counting and ``make_index``.
+multihost counting and ``make_index``.
 """
 
 from __future__ import annotations
@@ -61,9 +66,24 @@ def _compact(skeys, head, tail):
     return skeys[head], torch.nonzero(tail).flatten()
 
 
-def _to_host_counts(counts: torch.Tensor) -> np.ndarray:
-    # values are < 2^32; the int32 cast keeps their bits and halves the copy
+def to_host_counts(counts: torch.Tensor) -> np.ndarray:
+    """int64 counts below 2^32 (any device) -> host u32."""
+    # the int32 cast keeps their bits and halves the copy
     return counts.to(torch.int32).cpu().numpy().view(np.uint32)
+
+
+def count_chunk(codes: torch.Tensor, k: int, canonical: bool = True):
+    """One chunk's sorted unique keys and their counts (both int64), on
+    the device of ``codes`` (uint8, 255 = invalid): kernel A, the sort,
+    kernel B and the compaction."""
+    keys, valid = extract_kmers_best(codes, k, canonical)
+    if valid is not None:   # k = 32: no flag bit, drop invalid keys
+        keys = keys[valid]
+    skeys, head, tail, _, _ = count_unique(keys, word_bits=2 * k)
+    words, tails = _compact(skeys, head, tail)
+    # unit weights: a run's count is the distance between its tail and the
+    # previous run's tail
+    return words, torch.diff(tails + 1, prepend=tails.new_zeros(1))
 
 
 def count_chunks(codes: np.ndarray, k: int,
@@ -83,18 +103,10 @@ def count_chunks(codes: np.ndarray, k: int,
         return
     for start in range(0, max(n - (k - 1), 1), step):
         chunk = pad_pow2_chunk(codes[start:start + chunk_bases], chunk_bases)
-        keys, valid = extract_kmers_best(
-            torch.from_numpy(chunk).to(dev), k, canonical)
-        if valid is not None:   # k = 32: no flag bit, drop invalid keys
-            keys = keys[valid]
-        skeys, head, tail, _, n_unique = count_unique(keys, word_bits=2 * k)
-        if n_unique == 0:
-            continue
-        words, tails = _compact(skeys, head, tail)
-        # unit weights: a run's count is the distance between its tail
-        # and the previous run's tail
-        counts = torch.diff(tails + 1, prepend=tails.new_zeros(1))
-        yield u64_from_keys(words), _to_host_counts(counts)
+        words, counts = count_chunk(torch.from_numpy(chunk).to(dev), k,
+                                    canonical)
+        if len(words):
+            yield u64_from_keys(words), to_host_counts(counts)
 
 
 def merge_sorted_shards(shards, target_bucket: int = DEFAULT_MERGE_BUCKET,
@@ -142,7 +154,17 @@ def merge_sorted_shards(shards, target_bucket: int = DEFAULT_MERGE_BUCKET,
         words, tails = _compact(skeys, head, tail)
         tp = incl[tails]
         counts = torch.diff(tp, prepend=tp.new_zeros(1)) & 0xFFFFFFFF
-        yield u64_from_keys(words), _to_host_counts(counts)
+        yield u64_from_keys(words), to_host_counts(counts)
+
+
+def _default_mesh(dev: torch.device, canonical: bool):
+    """JAX's rule (``listmaker.py:684-688``): more than one card means the
+    mesh, unless GT4_TPU_MESH=0."""
+    if (dev.type == "cuda" and canonical and torch.cuda.device_count() > 1
+            and os.environ.get("GT4_TPU_MESH", "1") != "0"):
+        from genometester4_tpu_torch.parallel.sharding import make_mesh
+        return make_mesh()
+    return None
 
 
 def _print_phase_debug(hdr, n_words_in, t_parse, t_count, t_write):
@@ -164,11 +186,16 @@ def make_list(input_files, word_length: int, output_path: str,
               chunk_bases: int = DEFAULT_CHUNK_BASES,
               canonical: bool = True, debug: int = 0,
               spill_bytes: int | None = None,
-              slab_bytes: int = 1 << 28, device=None) -> ListHeader:
+              slab_bytes: int = 1 << 28, device=None,
+              mesh=None) -> ListHeader:
     """Full glistmaker run: files -> .list at ``output_path``.
 
     ``device``: ``None`` or ``"cuda"`` runs the CUDA kernels, ``"cpu"``
     their plain PyTorch versions; there is no automatic fallback.
+    ``mesh``: a ``parallel.sharding.Mesh`` counts every slab on it (then
+    ``chunk_bases`` is the mesh's own; canonical k-mers only). Without
+    one, a CUDA ``device`` with more than one visible card builds
+    ``make_mesh()`` unless GT4_TPU_MESH=0, as the JAX package does.
     ``debug`` > 0 prints per-phase counters to stderr. ``spill_bytes``
     (default 6 GiB, env GT4_SPILL_BYTES) is the in-RAM budget of counted
     shards before they spill to tmp .list files (dir GT4_TPU_TMPDIR)
@@ -176,6 +203,14 @@ def make_list(input_files, word_length: int, output_path: str,
     the -c/--max cutoffs, applied after the merge.
     """
     dev = resolve_device(device)
+    if mesh is None:
+        mesh = _default_mesh(dev, canonical)
+    elif not canonical:
+        raise ValueError("the mesh route counts canonical k-mers only")
+    if mesh is not None:
+        from genometester4_tpu_torch.parallel.sharding import \
+            count_kmers_sharded
+    mesh_adapt_state: dict = {}   # adapted bucket slack, carried over slabs
     if spill_bytes is None:
         spill_bytes = int(os.environ.get("GT4_SPILL_BYTES", 6 << 30))
     tmpdir = os.environ.get("GT4_TPU_TMPDIR") or None
@@ -212,8 +247,16 @@ def make_list(input_files, word_length: int, output_path: str,
                     break
                 codes, meta = item
                 t0 = time.time()
-                for w, c in count_chunks(codes, word_length, chunk_bases,
-                                         canonical, dev):
+                if mesh is not None:
+                    counted = [count_kmers_sharded(
+                        codes, word_length, mesh,
+                        adapt_state=mesh_adapt_state)]
+                else:
+                    counted = count_chunks(codes, word_length, chunk_bases,
+                                           canonical, dev)
+                for w, c in counted:
+                    if not len(w):
+                        continue
                     shards.append((w, c))
                     ram_bytes += w.nbytes + c.nbytes
                     if ram_bytes > spill_bytes:

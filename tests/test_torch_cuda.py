@@ -13,6 +13,9 @@ import torch
 from genometester4_tpu_torch.ops import encode as tenc
 from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
 from genometester4_tpu_torch.ops.kmers import extract_kmers
+from genometester4_tpu_torch.ops.merge_runs import (merge_runs,
+                                                    merge_sorted_runs)
+from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
 from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
 from genometester4_tpu_torch.ops.sortcount import count_unique, run_marks
 from genometester4_tpu_torch.ops.swalign import sw_fill
@@ -245,3 +248,151 @@ def test_gassembler_cuda_equals_cpu(cuda, tmp_path):
     assert results["cuda"][:3] == results["cpu"][:3]
     assert results["cuda"][0] == 0 and results["cpu"][3] == 0
     assert 0 < results["cuda"][3] < 13
+
+
+def _sorted_runs(cuda, seed, n, L, card, sentinel_tails=False):
+    """int64 keys in [-card, card) sorted within each length-L run; with
+    ``sentinel_tails`` each run ends in INT64_MAX from a random point."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    keys = torch.randint(-card, card, (n // L, L), generator=gen,
+                         device=cuda, dtype=torch.int64)
+    if sentinel_tails:
+        start = torch.randint(0, L + 1, (n // L, 1), generator=gen,
+                              device=cuda)
+        tail = torch.arange(L, device=cuda)[None, :] >= start
+        keys = keys.masked_fill(tail, (1 << 63) - 1)
+    return torch.sort(keys, dim=1).values.view(-1)
+
+
+@pytest.mark.parametrize("L,n", [(1, 2), (1, 1 << 16), (3, 6000),
+                                 (100, 2200), (1000, 8000), (1024, 2048),
+                                 (1024, 1 << 20), (3000, 3 * (1 << 14)),
+                                 (4096, 1 << 15), (1 << 20, 1 << 22),
+                                 (1 << 25, 1 << 26)])
+@pytest.mark.parametrize("card", [1, 5, 1 << 62])
+def test_merge_runs_kernel_equals_plain(cuda, L, n, card):
+    """Kernel E against merge_runs (a stable sort of each 2L span), keys and
+    positions bit for bit: L = 1, 2L below the 2048-slot tile (a tile spans
+    several pairs), L not a power of two (tiles cross spans), L up to 2^25,
+    all-equal keys (card 1) and ties (card 5)."""
+    keys = _sorted_runs(cuda, L + n + card, n, L, card)
+    got = merge_runs_cuda(keys, L)
+    want = merge_runs(keys, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("L,n", [(512, 1 << 14), (1 << 23, 1 << 26),
+                                 (1 << 25, 1 << 27)])
+def test_merge_runs_kernel_sentinel_tails_and_int32_positions(cuda, L, n):
+    """INT64_MAX tails (the mesh merge's padding) and n up to 2^27."""
+    keys = _sorted_runs(cuda, n, n, L, 1 << 40, sentinel_tails=True)
+    got = merge_runs_cuda(keys, L)
+    want = merge_runs(keys, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].max()) == n - 1
+
+
+def test_merge_sorted_runs_cuda_payloads_equal_cpu(cuda):
+    rng = np.random.default_rng(5)
+    n, L = 1 << 16, 1 << 12
+    keys = np.sort(rng.integers(0, 50, (n // L, L)), axis=1).ravel()
+    keys = torch.from_numpy(keys)
+    p64 = torch.from_numpy(rng.integers(0, 1 << 62, n))
+    p32 = torch.from_numpy(rng.integers(0, 1 << 31, n).astype(np.int32))
+    before = merge_runs_cuda.launches
+    got = merge_sorted_runs((keys.to(cuda), p64.to(cuda), p32.to(cuda)), L)
+    want = merge_sorted_runs((keys, p64, p32), L)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert merge_runs_cuda.launches == before + 1
+
+
+def test_merge_wrappers_reject_bad_tensors(cuda):
+    keys = torch.arange(64, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_runs_cuda(keys.cpu(), 4)
+    with pytest.raises(ValueError, match="int64"):
+        merge_runs_cuda(keys.to(torch.int32), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        merge_runs_cuda(keys.view(32, 2)[:, 0], 4)
+    with pytest.raises(ValueError, match="multiple of 2L"):
+        merge_runs_cuda(keys, 3)
+    with pytest.raises(ValueError, match="not sorted"):
+        merge_sorted_runs((keys.flip(0),), 4)
+    with pytest.raises(ValueError, match="payloads"):
+        merge_sorted_runs((keys, keys.cpu()), 4)
+
+
+@pytest.mark.parametrize("mode", ["resort", "bitonic"])
+def test_count_kmers_sharded_cuda_equals_cpu(cuda, monkeypatch, mode):
+    """8 slots on one card equal 8 cpu slots; kernel E runs in bitonic mode
+    only, kernels A and B in both."""
+    from genometester4_tpu_torch.parallel.sharding import (
+        count_kmers_sharded, make_mesh)
+    monkeypatch.setenv("GT4_TPU_MESH_MERGE", mode)
+    codes = _codes(17, 300_000).numpy()
+    before = (extract_kmers_cuda.launches, run_marks_cuda.launches,
+              merge_runs_cuda.launches)
+    got = count_kmers_sharded(codes, 25, make_mesh(
+        8, dp=2, devices=["cuda:0"] * 8), chunk_bases=1 << 15)
+    after = (extract_kmers_cuda.launches, run_marks_cuda.launches,
+             merge_runs_cuda.launches)
+    want = count_kmers_sharded(codes, 25, make_mesh(
+        8, dp=2, devices=["cpu"] * 8), chunk_bases=1 << 15)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert after[0] > before[0] and after[1] > before[1]
+    assert (after[2] > before[2]) == (mode == "bitonic")
+
+
+@pytest.fixture
+def cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA cards, found {n}")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+@pytest.mark.parametrize("mode", ["resort", "bitonic"])
+def test_mesh_across_cards_equals_cpu(cards, monkeypatch, mode):
+    """Slots on different cards: the exchange makes peer copies, each
+    column merges on its own card; equal to 8 cpu slots."""
+    from genometester4_tpu_torch.parallel.sharding import (
+        count_kmers_sharded, make_mesh)
+    monkeypatch.setenv("GT4_TPU_MESH_MERGE", mode)
+    codes = _codes(23, 400_000).numpy()
+    slots = (cards * 8)[:8]
+    got = count_kmers_sharded(codes, 25, make_mesh(8, dp=2, devices=slots),
+                              chunk_bases=1 << 15)
+    want = count_kmers_sharded(codes, 25, make_mesh(
+        8, dp=2, devices=["cpu"] * 8), chunk_bases=1 << 15)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_make_list_default_mesh_across_cards(cards, tmp_path, monkeypatch):
+    """More than one card: make_list on CUDA takes the mesh by default (JAX's
+    rule), GT4_TPU_MESH=0 opts out; both write the CPU route's bytes."""
+    from genometester4_tpu_torch.parallel import sharding
+    from genometester4_tpu_torch.pipelines.listmaker import make_list
+    rng = np.random.default_rng(6)
+    seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), 200_000,
+                     p=[0.24, 0.25, 0.25, 0.25, 0.01])
+    fa = tmp_path / "in.fa"
+    fa.write_bytes(b">a\n" + seq.tobytes() + b"\n")
+    make_list([str(fa)], 25, str(tmp_path / "cpu.list"), device="cpu")
+    made = []
+    real = sharding.make_mesh
+    monkeypatch.setattr(sharding, "make_mesh",
+                        lambda *a, **k: made.append(real(*a, **k)) or made[-1])
+    make_list([str(fa)], 25, str(tmp_path / "mesh.list"), device="cuda")
+    assert len(made) == 1
+    assert {d for row in made[0].devices for d in row} == {
+        torch.device(c) for c in cards}
+    monkeypatch.setenv("GT4_TPU_MESH", "0")
+    make_list([str(fa)], 25, str(tmp_path / "one.list"), device="cuda")
+    assert len(made) == 1
+    want = (tmp_path / "cpu.list").read_bytes()
+    assert (tmp_path / "mesh.list").read_bytes() == want
+    assert (tmp_path / "one.list").read_bytes() == want

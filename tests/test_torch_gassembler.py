@@ -345,6 +345,37 @@ def test_cli_module_usage_and_no_silent_cpu(katk):
         "\n") <= 1
 
 
+def test_cli_imports_torch_only_to_build_an_assembler(katk, monkeypatch):
+    """The port's CLI in a fresh process: ``-h`` and a bad flag leave torch
+    out of ``sys.modules``; a run on the CPU imports it and prints the JAX
+    host route's stdout."""
+    code = ("import sys\n"
+            "from genometester4_tpu_torch.cli.gassembler import main\n"
+            "rc = main(sys.argv[1:], device='cpu')\n"
+            "sys.stderr.write('torch imported: %s\\n'"
+            " % ('torch' in sys.modules))\n"
+            "sys.exit(rc)\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    env.pop("GT4_TPU_DEVICE_SW", None)
+
+    def port(args):
+        return subprocess.run([sys.executable, "-c", code, *args], cwd=katk,
+                              capture_output=True, text=True, timeout=300,
+                              env=env)
+
+    r = port(["-h"])
+    assert r.returncode == 0 and "Usage" in r.stdout
+    assert r.stderr.endswith("torch imported: False\n")
+    r = port(["--dbi"])
+    assert r.returncode == 1 and "Usage" in r.stderr
+    assert r.stderr.endswith("torch imported: False\n")
+    args = ARGS + ["--coverage", "40"]
+    want = run_jax_host(monkeypatch, katk, args)
+    r = port(args)
+    assert want[0] == r.returncode == 0 and r.stdout == want[1]
+    assert r.stderr.endswith("torch imported: True\n")
+
+
 def test_smoke_katk_fixture_small(tmp_path, monkeypatch, route_counts):
     """The KATK fixture of chip_smoke.py's katk phase at 12 regions,
     through the same set-up and oracle, with the port on the CPU: the two

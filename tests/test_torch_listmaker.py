@@ -135,8 +135,13 @@ def test_port_never_imports_jax(tmp_path):
         "from genometester4_tpu_torch.pipelines.listmaker import make_list\n"
         "import genometester4_tpu_torch.ops.extract_cuda\n"
         "import genometester4_tpu_torch.ops.runmarks_cuda\n"
+        "import genometester4_tpu_torch.ops.merge_runs_cuda\n"
+        "from genometester4_tpu_torch.parallel.sharding import make_mesh\n"
         f"h = make_list([{str(fa)!r}], 16, {str(out)!r}, device='cpu')\n"
         "assert h.n_words > 0\n"
+        f"m = make_list([{str(fa)!r}], 16, {str(out)!r}, device='cpu',\n"
+        "              mesh=make_mesh(4, devices=['cpu'] * 4))\n"
+        "assert m == h\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                        capture_output=True, text=True, timeout=120,
