@@ -25,21 +25,29 @@ Run from the repository root. Phases, each of which must pass:
            two regions of more than 200 reads) with 150 bp reads at 40x
            made from --seed; the read index comes from the JAX package's
            gmer_counter --compile_index host route in a subprocess (set-up,
-           untimed). Its stdout and stderr must equal the JAX package's
-           host route (native C SW, GT4_TPU_DEVICE_SW=0) run in a
-           subprocess, and kernel C must have run in fewer launches than
-           regions.
+           untimed). The port's device route and its own host route
+           (GT4_TPU_DEVICE_SW=0: native C fill) run in this process, in
+           turns (device, host, host, device). Every run's stdout and
+           stderr must equal the JAX package's host route, run in a
+           subprocess as the reference, and kernel C must have run in
+           fewer launches than regions.
 5. shared  kernel D's entry point (``sw_pallas_matrices``) over the reads
            of 64 regions; equal to kernel C's entry on the same input.
 6. kernels each CUDA kernel against its plain PyTorch version on the card
            at the shapes of its path (kernel E also at L = 1 and at tied
            keys with 2L below its tile): equal bits required (integer
-           contract, tolerance 0); median times of both are printed.
+           contract, tolerance 0); median times of both are printed, with
+           each kernel's bound (the larger of its bytes over 3.35 TB/s and
+           its integer operations over 16.7 T op/s, from this run's
+           inputs) and, for kernel E, the one PyTorch call that computes
+           the same function (a stable segmented torch.sort).
 7. card    the card's name and power limit from nvidia-smi.
 
 The last two lines of stdout are a JSON object of the kernels and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
-them; so does a machine without CUDA.
+them; so does a machine without CUDA. Nothing of JAX or of the JAX package
+is imported here: the JAX package runs only in subprocesses, as the
+reference and to build the read index.
 """
 
 from __future__ import annotations
@@ -71,6 +79,15 @@ SW_SHARED_SHAPE = (128, 200, 150)  # kernel D: reads, n, m
 # in runs of cap2, each run's tail (past cap ~ 6.29 M) the INT64_MAX padding
 MERGE_N, MERGE_L, MERGE_CAP = 1 << 26, 1 << 23, 6_291_438
 MESH_SLOTS, MESH_DP = 8, 2
+# H100 SXM: HBM bytes/s, and int32 ops/s outside the tensor cores (132 SMs
+# x 64 int32 lanes x 1.98 GHz boost)
+PEAK_BYTES, PEAK_INT_OPS = 3.35e12, 16.7e12
+# integer operations per element that each function needs at the least:
+# a rolling canonical word per window (A), neighbour compares and the
+# checksum per key (B), the affine recurrence per cell (C, D), a compare
+# and select per merged key (E)
+OPS_PER = {"extract": 12, "run_marks": 10, "sw_lanes": 30, "sw_shared": 30,
+           "merge_runs": 4}
 
 
 class SmokeFailure(Exception):
@@ -174,6 +191,15 @@ def median_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def bound(name: str, n_bytes: float, n_elems: float):
+    """(bound ms, "bytes" or "operations") for ``n_bytes`` moved and
+    ``n_elems`` elements of OPS_PER[name] integer operations."""
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    by_ops = n_elems * OPS_PER[name] / PEAK_INT_OPS * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
 def max_abs_err(torch, got, want) -> int:
     """Largest |got - want| over integer tensors, exact (0 when equal)."""
     check(got.shape == want.shape, f"shape {tuple(got.shape)} != "
@@ -217,8 +243,9 @@ def phase_kernels(torch, seed: int) -> dict:
                                                          canonical), 5)
             log(f"kernel extract k={k:2d} canonical={int(canonical)} n=2^25: "
                 f"{ms:.4f} ms   plain {pms:.4f} ms   equal bits")
-            if k == K and canonical:
-                res["extract"] = [0, ms, pms]
+            if k == K and canonical:   # codes in, int64 keys out
+                res["extract"] = [0, ms, pms, *bound(
+                    "extract", 9 * N_KERNEL, N_KERNEL), None]
     res["extract"][0] = err_a
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -254,8 +281,9 @@ def phase_kernels(torch, seed: int) -> dict:
         log(f"kernel run_marks k={k} n=2^25 n_valid={n_valid} "
             f"n_unique={n_unique} checksum={chk & 0xFFFFFFFF}: "
             f"{ms:.4f} ms   plain {pms:.4f} ms   equal bits")
-        if k == K:
-            res["run_marks"] = [0, ms, pms]
+        if k == K:   # keys in; head, tail masks and 3 scalars out
+            res["run_marks"] = [0, ms, pms, *bound(
+                "run_marks", 10 * N_KERNEL + 12, N_KERNEL), None]
     res["run_marks"][0] = err_b
     return res
 
@@ -264,7 +292,8 @@ def phase_merge_kernel(torch, seed: int) -> list:
     """Kernel E against ``merge_runs`` on the card: keys, positions and a
     gathered int64 payload bit for bit at the mesh route's shape, at L = 1
     and at tied keys with 2L below the 2048-slot tile. Returns [max abs
-    err, ms, plain ms] at the path's shape."""
+    err, ms, plain ms, bound ms, bound by, library ms] at the path's
+    shape."""
     from genometester4_tpu_torch.ops.merge_runs import merge_runs
     from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
 
@@ -290,26 +319,32 @@ def phase_merge_kernel(torch, seed: int) -> list:
                         f"(max abs err {err})")
         ms = median_ms(torch, lambda: merge_runs_cuda(keys, L), 20)
         pms = median_ms(torch, lambda: merge_runs(keys, L), 5)
+        lms = median_ms(torch, lambda: torch.sort(
+            keys.view(-1, 2 * L), dim=1, stable=True), 5)
+        bms, by = bound("merge_runs", 20 * n, n)   # keys in; keys, int32 out
         log(f"kernel merge_runs {name} n={n} L={L}: {ms:.4f} ms   plain "
-            f"{pms:.4f} ms   equal bits (keys, positions, int64 payload)")
+            f"{pms:.4f} ms   library (stable torch.sort) {lms:.4f} ms   "
+            f"bound {bms:.4f} ms ({by})   equal bits (keys, positions, "
+            f"int64 payload)")
         if out is None:
-            out = [err, ms, pms]
+            out = [err, ms, pms, bms, by, lms]
         del keys, payload, got, gpos, want, wpos
     return out
 
 
 @contextlib.contextmanager
-def mesh_merge(mode: str):
-    """GT4_TPU_MESH_MERGE=mode for the block, restored after it."""
-    old = os.environ.get("GT4_TPU_MESH_MERGE")
-    os.environ["GT4_TPU_MESH_MERGE"] = mode
+def environ(name: str, value):
+    """Environment variable ``name`` set to ``value`` (unset for None) for
+    the block, restored after it."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["GT4_TPU_MESH_MERGE"]
-        else:
-            os.environ["GT4_TPU_MESH_MERGE"] = old
+        os.environ.pop(name, None)
+        if old is not None:
+            os.environ[name] = old
 
 
 def mesh_slots():
@@ -338,7 +373,8 @@ def phase_mesh(torch, fa: str, tmp: str, single: str, single_wall: float):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         phases = io.StringIO()
-        with mesh_merge(mode), contextlib.redirect_stderr(phases):
+        with environ("GT4_TPU_MESH_MERGE", mode), \
+                contextlib.redirect_stderr(phases):
             make_list([fa], K, out, device="cuda", mesh=mesh, debug=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -364,9 +400,38 @@ def phase_mesh(torch, fa: str, tmp: str, single: str, single_wall: float):
     return runs["bitonic"]
 
 
-def _port_gassembler(torch, path: str, args: list):
-    """The port's gassembler CLI in this process on CUDA, in ``path``;
-    returns (rc, stdout bytes, stderr bytes, wall s to a synchronize)."""
+def reference_cli(path: str, module: str, args: list, **env):
+    """A CLI of the JAX package on its host route in a subprocess in
+    ``path`` (``JAX_PLATFORMS=cpu``: its host routes import no jax): the
+    read index's set-up and the reference output. Returns (the finished
+    process, the wall of the CLI's ``main`` in s, or None if it raised)."""
+    wall_file = os.path.join(path, ".main_wall")
+    code = ("import sys, time\n"
+            f"from genometester4_tpu.cli.{module} import main\n"
+            "t = time.perf_counter()\n"
+            "rc = main(sys.argv[2:])\n"
+            "with open(sys.argv[1], 'w') as f:\n"
+            "    f.write(repr(time.perf_counter() - t))\n"
+            "sys.exit(rc)\n")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run(
+        [sys.executable, "-c", code, wall_file, *args], cwd=path,
+        capture_output=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": repo, "JAX_PLATFORMS": "cpu",
+             **env})
+    wall = None
+    if os.path.exists(wall_file):
+        with open(wall_file) as f:
+            wall = float(f.read())
+        os.remove(wall_file)
+    return r, wall
+
+
+def _port_gassembler(torch, path: str, args: list, device_route: bool):
+    """The port's gassembler CLI in this process on CUDA, in ``path``, on
+    its device route (kernel C) or its host route (GT4_TPU_DEVICE_SW=0, the
+    native C fill); returns (rc, stdout bytes, stderr bytes, wall s to a
+    synchronize)."""
     from genometester4_tpu_torch.cli.gassembler import main as gassembler
     out, err = io.StringIO(), io.StringIO()
     old = os.getcwd()
@@ -374,7 +439,9 @@ def _port_gassembler(torch, path: str, args: list):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        with environ("GT4_TPU_DEVICE_SW", None if device_route else "0"), \
+                contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
             rc = gassembler(args, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -384,16 +451,17 @@ def _port_gassembler(torch, path: str, args: list):
 
 
 def phase_katk(torch, path: str, seed: int):
-    """KATK gassembler on CUDA against the JAX package's host route.
-    Returns (kernel C launches, the regions' SW inputs)."""
+    """KATK gassembler on CUDA: the port's device route and its own host
+    route in turns, each against the JAX package's host route. Returns
+    (kernel C launches of the main path's run, the regions' SW inputs)."""
     from genometester4_tpu_torch.ops.swalign_cuda import sw_fill_lanes_cuda
     from genometester4_tpu_torch.pipelines import gassemble as port_gas
     from genometester4_tpu_torch.tools import katk_fixture as kf
 
     t0 = time.perf_counter()
     inputs = kf.write_katk_fixture(path, seed)
-    r, _ = kf.jax_package_cli(path, "gmer_counter", kf.INDEX_ARGS,
-                              GT4_TPU_COUNT_IMPL="host")
+    r, _ = reference_cli(path, "gmer_counter", kf.INDEX_ARGS,
+                         GT4_TPU_COUNT_IMPL="host")
     check(r.returncode == 0, f"gmer_counter --compile_index failed: "
                              f"{r.stderr.decode(errors='replace')[-2000:]}")
     with open(os.path.join(path, "regions.txt")) as f:
@@ -404,23 +472,25 @@ def phase_katk(torch, path: str, seed: int):
         f"{kf.READ_BP} bp (seed {seed}), read index built in "
         f"{time.perf_counter() - t0:.2f} s (set-up)")
 
-    # warm-up of the host route: native library build, page cache
-    kf.jax_package_cli(path, "gassembler", kf.ARGS + ["--max_regions", "8"],
-                       GT4_TPU_DEVICE_SW="0")
+    # warm-up of the reference: its native library build, page cache
+    reference_cli(path, "gassembler", kf.ARGS + ["--max_regions", "8"],
+                  GT4_TPU_DEVICE_SW="0")
     t0 = time.perf_counter()
-    want, host_wall = kf.jax_package_cli(path, "gassembler", kf.ARGS,
-                                         GT4_TPU_DEVICE_SW="0")
+    want, ref_wall = reference_cli(path, "gassembler", kf.ARGS,
+                                   GT4_TPU_DEVICE_SW="0")
     process_wall = time.perf_counter() - t0
     check(want.returncode == 0, f"JAX host-route gassembler failed: "
                                 f"{want.stderr.decode(errors='replace')}")
     lines = want.stdout.count(b"\n")
-    log(f"katk oracle: JAX package host route (native C SW) in a "
-        f"subprocess, main() wall {host_wall:.3f} s "
-        f"({n_regions / host_wall:.1f} regions/s; the whole process "
+    log(f"katk reference: JAX package host route (native C SW) in a "
+        f"subprocess, main() wall {ref_wall:.3f} s (the whole process "
         f"{process_wall:.3f} s), {lines} stdout lines")
 
-    # warm-up: CUDA context, allocator, pinned-memory pool
-    _port_gassembler(torch, path, kf.ARGS + ["--max_regions", "8"])
+    # warm-up of both port routes: CUDA context, allocator, pinned pool,
+    # the port's native library build
+    for route in (True, False):
+        _port_gassembler(torch, path, kf.ARGS + ["--max_regions", "8"],
+                         route)
 
     # the JAX window loop would gather cached regions again here: a
     # prefetch for an uncached (oversized) region with its successor cached
@@ -434,29 +504,40 @@ def phase_katk(torch, path: str, seed: int):
             cache_skips += 1
         return prefetch(self, regions, idx)
 
+    walls = {"device": [], "host": []}
+    launches = None
     port_gas.Assembler.prefetch_device_sw = watched
     try:
-        sw_fill_lanes_cuda.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        rc, out, err, wall = _port_gassembler(torch, path, kf.ARGS)
-        launches = sw_fill_lanes_cuda.launches
+        for route in ("device", "host", "host", "device"):
+            sw_fill_lanes_cuda.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            rc, out, err, wall = _port_gassembler(torch, path, kf.ARGS,
+                                                  route == "device")
+            n_launch = sw_fill_lanes_cuda.launches
+            if launches is None:   # the main path's run
+                launches = n_launch
+            walls[route].append(wall)
+            log(f"katk port {route} route: main() wall {wall:.3f} s "
+                f"({n_regions / wall:.1f} regions/s), peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                f"kernel C launches {n_launch}")
+            check(rc == 0, f"port gassembler ({route} route) exited {rc}")
+            check(out == want.stdout, f"port gassembler ({route} route) "
+                                      f"stdout differs from the reference")
+            check(err == want.stderr,
+                  f"port gassembler ({route} route) stderr differs from "
+                  f"the reference: {err[-500:]!r} vs {want.stderr[-500:]!r}")
+            check((n_launch > 0) == (route == "device"),
+                  f"{route} route launched kernel C {n_launch} times")
     finally:
         port_gas.Assembler.prefetch_device_sw = prefetch
-    log(f"katk main path: port gassembler on CUDA, {n_regions} regions, "
-        f"main() wall {wall:.3f} s ({n_regions / wall:.1f} regions/s), "
-        f"peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"kernel C launches {launches}, prefetches past cached regions "
-        f"{cache_skips} (the oracle ran in a fresh process: its wall is "
-        f"not comparable, see PERF.md)")
-    check(rc == 0, f"port gassembler exited {rc}")
-    check(out == want.stdout, "port gassembler stdout differs from the JAX "
-                              "host route")
-    check(err == want.stderr, f"port gassembler stderr differs from the JAX "
-                              f"host route: {err[-500:]!r} vs "
-                              f"{want.stderr[-500:]!r}")
-    log(f"katk: stdout ({len(out)} bytes) and stderr ({len(err)} bytes) "
-        f"byte-identical to the JAX host route")
+    log(f"katk: stdout ({len(want.stdout)} bytes) and stderr "
+        f"({len(want.stderr)} bytes) of all four port runs byte-identical "
+        f"to the JAX host route; in this process, in turns: device route "
+        f"{walls['device'][0]:.3f} and {walls['device'][1]:.3f} s, the "
+        f"port's host route {walls['host'][0]:.3f} and "
+        f"{walls['host'][1]:.3f} s; prefetches past cached regions "
+        f"{cache_skips}")
     check(0 < launches < n_regions, f"kernel C launches {launches} not in "
                                     f"1..{n_regions - 1}")
     check(cache_skips > 0, "the oversized region never followed a cached "
@@ -547,9 +628,14 @@ def phase_sw_kernels(torch, seed: int) -> dict:
                         f"{err})")
         ms = median_ms(torch, kernel, 20)
         pms = median_ms(torch, plain, 3)
+        # the cells this run's reference lengths need; codes in, 4 B a cell
+        # out
+        cells = int(np.minimum(np.maximum(nvec, 0), n).sum()) * m
+        in_bytes = (B if lanes else 1) * n + B * m + (4 * B if lanes else 0)
+        bms, by = bound(name, in_bytes + 4 * B * (n + 1) * (m + 1), cells)
         log(f"kernel {name} B={B} n={n} m={m}: {ms:.4f} ms   plain "
-            f"{pms:.4f} ms   equal bits")
-        res[name] = [err, ms, pms]
+            f"{pms:.4f} ms   bound {bms:.4f} ms ({by})   equal bits")
+        res[name] = [err, ms, pms, bms, by, None]
 
     # gaps past 127: the int8 wrap of gap lengths in sx and sy
     n = m = 300
@@ -609,7 +695,7 @@ def run(args) -> None:
         write_fasta(warm, genome_bases(args.seed + 1, 300_000))
         make_list([warm], K, os.path.join(tmp, "warm.list"), device="cuda")
         for mode in ("resort", "bitonic"):
-            with mesh_merge(mode):
+            with environ("GT4_TPU_MESH_MERGE", mode):
                 make_list([warm], K, os.path.join(tmp, "warm.list"),
                           device="cuda", mesh=mesh_slots())
 
@@ -686,12 +772,16 @@ def run(args) -> None:
              "genometester4_tpu/ops/swalign_pallas.py:46"),
             ("merge_runs", "genometester4_tpu_torch/csrc/merge_runs.cu",
              "genometester4_tpu/ops/bitonic_merge_pallas.py:47")):
-        err, ms, pms = res[name]
+        err, ms, pms, bms, by, lms = res[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": round(ms, 4),
-                     "plain_ms": round(pms, 4)})
-    check("jax" not in sys.modules, "jax was imported")
+                     "plain_ms": round(pms, 4), "bound_ms": round(bms, 4),
+                     "bound_by": by,
+                     "library_ms": None if lms is None else round(lms, 4)})
+    check(not [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "genometester4_tpu")],
+          "jax or the JAX package was imported")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,11 @@ reimplements its device layer for one NVIDIA Hopper GPU (sm_90a) and is
 held to the JAX package bit for bit by the differential tests in
 ``tests/test_torch_*.py``. It imports ``torch`` and never ``jax``.
 
-Host layers that never touched JAX are reused from the JAX package, not
-copied, so the byte-parity quirks they encode stay in one place:
-``io.fasta`` (slab parsing), ``formats.list_format`` (.list I/O) and the
-numpy helpers of ``ops.encode``.
+The port imports nothing of the JAX package either. The host layers it
+runs (FASTA slab parsing, the file formats, gassembler's pipeline and CLI,
+the host C library's loader) are its own copies, in the JAX package's
+layout, so a reader finds each counterpart by name; the CPU tests hold the
+copies to the JAX package's output bytes.
 
 Device representation: a k-mer is one int64 *key*, the 2k-bit word with
 bit 63 flipped, so signed int64 order is unsigned word order. For k <= 31
@@ -17,14 +18,19 @@ every valid key (``ops.encode``).
 
 Sub-packages
 ------------
-utils      device resolution
+utils      device resolution, the host C library (``native``), mmap
+           failure chrome, numpy allocation setting
 ops        encode helpers, k-mer extraction, sort + run counting, SW fills
            and the merge of sorted runs, each hand-written CUDA kernel
            beside its plain PyTorch version
 csrc       the CUDA C++ kernel sources, built with nvcc at first use
+formats    .list reader/writer; GMDB, read index readers
+io         the FASTA/FASTQ slab parser
 parallel   glistmaker's mesh counting route (``sharding``)
 pipelines  glistmaker's device counting route (``make_list``) and
-           gassembler's device SW fills
+           gassembler (``gassemble``), its SW fills on the device
+cli        gassembler's command line
+tools      a seeded KATK gassembler workload
 """
 
 __version__ = "0.1.0"

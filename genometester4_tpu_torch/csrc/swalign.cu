@@ -18,28 +18,42 @@
 // cell; gap lengths wrap as int8. Padded read columns (code 6) are computed
 // like any other column.
 //
-// Bound: the output. A cell costs ~30 integer operations and writes 4 bytes
-// (int16 score, two int8 directions), which this card can stream far
-// faster than one thread per read can produce them, so in practice both
-// kernels are bound by the latency of their dependent cell chain, not by
-// device memory. What the designs do about it:
-//   C: one thread per read sweeps rows i, then columns j: the C reference's
-//      own order. Its rolling row state (score, top-gap score and length
-//      of row i-1) lives in shared memory, column-interleaved across the
-//      block's threads so a warp's 32 accesses to one column are free of
-//      bank conflicts. It needs no barrier, and blocks of one warp spread
-//      a window of ~512 reads over as many SMs as there are warps. That
-//      is 16 of 132 SMs for 512 reads: the chain of one thread per read,
-//      not the card, bounds it.
-//   D: one thread per column sweeps the anti-diagonals (cells of one
-//      diagonal are independent), with the neighbour column's state of the
-//      previous diagonal in double-buffered shared memory and one
-//      __syncthreads per diagonal; the reference sits in shared memory.
-// Both write row-major matrices straight from the recurrence. The TPU
-// kernels' diagonal-stacked int32 output (and the host diag_to_matrix it
-// needed), their 128-lane / 8-sublane padding, the precomputed diagonal
-// gather of reference bases, the rolling reference row in scratch and the
-// (..., 1, 128) unit dimensions exist only for Mosaic and are not ported.
+// Bound: operations. A cell costs ~30 integer operations and writes 4 bytes
+// (int16 score, two int8 directions): at the card's int32 rate
+// (16.7 T op/s) a gassembler window of 512 reads x 200 x 152 cells needs
+// ~0.03 ms, its 63 MB of output ~0.02 ms at 3.35 TB/s. What stands between
+// a kernel and that bound is the dependent chain of cells, and how the
+// output reaches device memory.
+//
+// Kernel C: one warp per read, so a window of reads spreads over every SM
+// (the earlier form, one thread per read, filled 16 of 132 SMs with 512
+// reads and wrote each cell as a transaction of its own). Lane L owns a
+// strip of S = ceil(m/32) columns (S is a template parameter, so the
+// strip's state lives in registers) and computes row i = t - L + 1 at step
+// t: a skewed wavefront. Within a strip the cells go left to right; the
+// left neighbour's state (its gap state in row i and its score in row i-1)
+// comes from lane L-1's previous step through __shfl_up_sync, so the warp
+// needs no barrier. Lane 31 finishes a row one step after lane 30, so at
+// every step exactly one row completes. Rows are staged in a ring of 32
+// rows in shared memory (4 bytes per cell: 19.6 KB at m = 152, 11 warps
+// per SM), and the warp copies each finished row out with neighbouring
+// lanes on neighbouring addresses. One warp per read, rather than kernel
+// D's block per read, because a block that sweeps anti-diagonals finishes
+// row i only at diagonal i + m: staging its output takes the whole matrix
+// (123 KB at 200 x 152, one block per SM), and every diagonal costs a
+// block barrier. Limit: m <= 1472 (32 strips of at most 46 columns).
+//
+// Kernel D: one thread per column sweeps the anti-diagonals (cells of one
+// diagonal are independent), with the neighbour column's state of the
+// previous diagonal in double-buffered shared memory and one __syncthreads
+// per diagonal; the reference sits in shared memory. It writes row-major
+// matrices straight from the recurrence.
+//
+// The TPU kernels' diagonal-stacked int32 output (and the host
+// diag_to_matrix it needed), their 128-lane / 8-sublane padding, the
+// precomputed diagonal gather of reference bases, the rolling reference row
+// in scratch and the (..., 1, 128) unit dimensions exist only for Mosaic and
+// are not ported.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,7 +67,10 @@ constexpr int kGapOpen = -4;
 constexpr int kGapExt = -2;
 constexpr int kNeg = -1000;
 constexpr int kNuclN = 4;
-constexpr int kLaneThreads = 32;   // kernel C: reads per block
+constexpr int kNone = 6;           // padding code of reads
+constexpr int kWarp = 32;
+constexpr int kRingRows = 32;      // kernel C: rows staged per read
+constexpr int kMaxLaneCols = 1472; // kernel C: widest read (m), 32 x 46
 constexpr int kMaxSharedBytes = 232448;
 
 __device__ __forceinline__ int wrap8(int x) { return ((x + 128) & 255) - 128; }
@@ -97,71 +114,100 @@ __device__ __forceinline__ void sw_cell(int a, int b, int diag, int& ls,
   }
 }
 
-// Kernel C: thread b aligns reads[b] to refs[b, :min(nvec[b], n)].
-__global__ void sw_lanes_kernel(const int8_t* __restrict__ refs,
-                                const int8_t* __restrict__ reads,
-                                const int* __restrict__ nvec,
-                                int16_t* __restrict__ score,
-                                int8_t* __restrict__ sx,
-                                int8_t* __restrict__ sy, int B, int n, int m) {
+// Kernel C: block b, one warp, aligns reads[b] to refs[b, :min(nvec[b], n)].
+// Lane L owns columns L*S+1 .. L*S+S and computes row i = t - L + 1 at step
+// t; rows go through a ring of kRingRows rows in shared memory, three
+// planes (score, sx, sy) of [kRingRows][m+1].
+template <int S>
+__global__ void __launch_bounds__(kWarp)
+    sw_lanes_kernel(const int8_t* __restrict__ refs,
+                    const int8_t* __restrict__ reads,
+                    const int* __restrict__ nvec, int16_t* __restrict__ score,
+                    int8_t* __restrict__ sx, int8_t* __restrict__ sy, int n,
+                    int m) {
+  static_assert(kRingRows == kWarp, "one ring row per lane at set-up");
   extern __shared__ unsigned char smem[];
-  const int T = blockDim.x, t = threadIdx.x;
-  // row state of row i-1 for column j at [j * T + t]
-  int16_t* h_row = reinterpret_cast<int16_t*>(smem);
-  int16_t* tg_s = h_row + (m + 1) * T;
-  int8_t* tg_l = reinterpret_cast<int8_t*>(tg_s + (m + 1) * T);
-  const int b = blockIdx.x * T + t;
-  if (b >= B) return;   // no barrier below, so idle threads may leave
-
-  const long long cols = m + 1;
+  const int cols = m + 1;
+  int16_t* ring_sc = reinterpret_cast<int16_t*>(smem);
+  int8_t* ring_x = reinterpret_cast<int8_t*>(ring_sc + kRingRows * cols);
+  int8_t* ring_y = ring_x + kRingRows * cols;
+  const int b = blockIdx.x, lane = threadIdx.x;
   const long long at = static_cast<long long>(b) * (n + 1) * cols;
   int16_t* sc = score + at;
   int8_t* x = sx + at;
   int8_t* y = sy + at;
   const int8_t* ref = refs + static_cast<long long>(b) * n;
-  const int8_t* read = reads + static_cast<long long>(b) * m;
   const int lim = min(max(nvec[b], 0), n);
 
-  for (int j = 0; j <= m; ++j) {
-    h_row[j * T + t] = 0;
-    tg_s[j * T + t] = kNeg;
-    tg_l[j * T + t] = 0;
-    sc[j] = 0;
-    x[j] = 0;
-    y[j] = 0;
+  // row 0 and the rows past lim are zero, and so is column 0 of the ring
+  for (int k = lane; k < cols; k += kWarp) {
+    sc[k] = 0;
+    x[k] = 0;
+    y[k] = 0;
   }
-  for (int i = 1; i <= n; ++i) {
-    int16_t* sc_r = sc + i * cols;
-    int8_t* x_r = x + i * cols;
-    int8_t* y_r = y + i * cols;
-    sc_r[0] = 0;
-    x_r[0] = 0;
-    y_r[0] = 0;
-    if (i > lim) {
-      for (int j = 1; j <= m; ++j) {
-        sc_r[j] = 0;
-        x_r[j] = 0;
-        y_r[j] = 0;
+  const long long z1 = static_cast<long long>(n + 1) * cols;
+  for (long long k = static_cast<long long>(lim + 1) * cols + lane; k < z1;
+       k += kWarp) {
+    sc[k] = 0;
+    x[k] = 0;
+    y[k] = 0;
+  }
+  ring_sc[lane * cols] = 0;
+  ring_x[lane * cols] = 0;
+  ring_y[lane * cols] = 0;
+
+  const int c0 = lane * S + 1;   // this lane's first column
+  int code[S], up[S], ts[S], tl[S];   // read code, H(i-1, j), top gap
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int j = c0 + s;
+    code[s] = j <= m ? reads[static_cast<long long>(b) * m + j - 1] : kNone;
+    up[s] = 0;
+    ts[s] = kNeg;
+    tl[s] = 0;
+  }
+  // from lane L-1's previous step: H(i-1, c0-1) and the left gap state of
+  // (i, c0-1); lane 0 borders column 0 instead
+  int diag_in = 0, ls_in = kNeg, ll_in = 0;
+  __syncwarp();
+
+  for (int t = 0; t < lim + kWarp - 1; ++t) {
+    const int i = t - lane + 1;
+    int diag = lane ? diag_in : 0;
+    int ls = lane ? ls_in : kNeg, ll = lane ? ll_in : 0;
+    if (i >= 1 && i <= lim) {
+      const int a = ref[i - 1];
+      const int row = ((i - 1) & (kRingRows - 1)) * cols;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        int cell, csx, csy;
+        sw_cell(a, code[s], diag, ls, ll, ts[s], tl[s], cell, csx, csy);
+        diag = up[s];
+        up[s] = cell;
+        const int j = c0 + s;
+        if (j <= m) {
+          ring_sc[row + j] = static_cast<int16_t>(cell);
+          ring_x[row + j] = static_cast<int8_t>(csx);
+          ring_y[row + j] = static_cast<int8_t>(csy);
+        }
       }
-      continue;
     }
-    const int a = ref[i - 1];
-    int diag = 0;            // H(i-1, 0)
-    int ls = kNeg, ll = 0;   // left gap state of (i, 0)
-    for (int j = 1; j <= m; ++j) {
-      const int k = j * T + t;
-      const int up = h_row[k];
-      int ts = tg_s[k], tl = tg_l[k];
-      int cell, csx, csy;
-      sw_cell(a, read[j - 1], diag, ls, ll, ts, tl, cell, csx, csy);
-      diag = up;
-      h_row[k] = static_cast<int16_t>(cell);
-      tg_s[k] = static_cast<int16_t>(ts);
-      tg_l[k] = static_cast<int8_t>(tl);
-      sc_r[j] = static_cast<int16_t>(cell);
-      x_r[j] = static_cast<int8_t>(csx);
-      y_r[j] = static_cast<int8_t>(csy);
+    diag_in = __shfl_up_sync(0xffffffffu, diag, 1);
+    ls_in = __shfl_up_sync(0xffffffffu, ls, 1);
+    ll_in = __shfl_up_sync(0xffffffffu, ll, 1);
+    __syncwarp();
+    // lane 31 has just finished row r: copy it out, lane k on column k
+    const int r = t - (kWarp - 2);
+    if (r >= 1) {
+      const int row = ((r - 1) & (kRingRows - 1)) * cols;
+      const long long g = static_cast<long long>(r) * cols;
+      for (int k = lane; k < cols; k += kWarp) {
+        sc[g + k] = ring_sc[row + k];
+        x[g + k] = ring_x[row + k];
+        y[g + k] = ring_y[row + k];
+      }
     }
+    __syncwarp();
   }
 }
 
@@ -246,26 +292,41 @@ int prepare_shared(Kernel kernel, long long bytes) {
   return 0;
 }
 
+template <int S>
+int launch_lanes(const void* refs, const void* reads, const void* nvec,
+                 void* score, void* sx, void* sy, int B, int n, int m,
+                 void* stream) {
+  const long long bytes = 4LL * kRingRows * (m + 1);
+  const int err = prepare_shared(sw_lanes_kernel<S>, bytes);
+  if (err) return err;
+  sw_lanes_kernel<S><<<static_cast<unsigned>(B), kWarp, bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(refs), static_cast<const int8_t*>(reads),
+      static_cast<const int*>(nvec), static_cast<int16_t*>(score),
+      static_cast<int8_t*>(sx), static_cast<int8_t*>(sy), n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Kernel C. refs int8[B, n], reads int8[B, m], nvec int32[B]; outputs
-// [B, n+1, m+1]. Launches on `stream`; allocates nothing. Returns
-// cudaGetLastError() (or the error of a refused configuration).
+// Kernel C. refs int8[B, n], reads int8[B, m] with m <= 1472, nvec
+// int32[B]; outputs [B, n+1, m+1]. Launches on `stream`; allocates nothing.
+// Returns cudaGetLastError() (or the error of a refused configuration).
 extern "C" int gt4_sw_lanes(const void* refs, const void* reads,
                             const void* nvec, void* score, void* sx, void* sy,
                             int B, int n, int m, void* stream) {
   if (B <= 0) return 0;
-  if (n < 0 || m < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long bytes = 5LL * (m + 1) * kLaneThreads;
-  const int err = prepare_shared(sw_lanes_kernel, bytes);
-  if (err) return err;
-  const unsigned blocks = (B + kLaneThreads - 1) / kLaneThreads;
-  sw_lanes_kernel<<<blocks, kLaneThreads, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(refs), static_cast<const int8_t*>(reads),
-      static_cast<const int*>(nvec), static_cast<int16_t*>(score),
-      static_cast<int8_t*>(sx), static_cast<int8_t*>(sy), B, n, m);
-  return static_cast<int>(cudaGetLastError());
+  if (n < 0 || m < 0 || m > kMaxLaneCols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int strip = (m + kWarp - 1) / kWarp;   // columns per lane
+#define GT4_LANES(S)                                                        \
+  if (strip <= S)                                                           \
+    return launch_lanes<S>(refs, reads, nvec, score, sx, sy, B, n, m, stream);
+  GT4_LANES(1) GT4_LANES(2) GT4_LANES(3) GT4_LANES(4) GT4_LANES(5)
+  GT4_LANES(6) GT4_LANES(7) GT4_LANES(8) GT4_LANES(10) GT4_LANES(12)
+  GT4_LANES(16) GT4_LANES(24) GT4_LANES(32) GT4_LANES(46)
+#undef GT4_LANES
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Kernel D. ref int8[n], reads int8[B, m] with m + 1 <= 1024; outputs

@@ -1,0 +1,438 @@
+"""FASTA/FASTQ ingestion: the streaming slab parser (the port's copy of
+``iter_code_slabs`` and what it calls, ``genometester4_tpu/io/fasta.py``).
+
+Replaces the reference's byte-at-a-time state machine parser
+(src/fasta.c:127-288) with a fully vectorized numpy parse: the whole
+buffer is classified in a handful of array passes, producing one packed
+uint8 code array (values 0-3; 255 = invalid/N/record separator) ready to
+ship to the device k-mer extraction kernel.
+
+Semantics preserved from the reference:
+* any byte outside ACGTUacgtu resets the k-mer window (src/fasta.c:258-264)
+  — here such bytes simply carry code 255 and the device kernel masks
+  every window containing one;
+* sequences never run together: one 255 sentinel separates consecutive
+  records, so no window spans a record boundary;
+* gzip input is supported (src/sequence-zstream.c) via Python's zlib;
+* ``-`` reads stdin (src/sequence-stream.h:64-66).
+"""
+
+from __future__ import annotations
+
+import sys
+from dataclasses import dataclass
+
+import numpy as np
+
+from genometester4_tpu_torch.ops.encode import NUCL_CODES
+
+_NL = ord("\n")
+_CR = ord("\r")
+_GT = ord(">")
+_AT = ord("@")
+
+
+@dataclass
+class ParsedSequences:
+    """Result of a parse: packed codes plus per-record bookkeeping.
+
+    codes          uint8[ total_bases + n_records ] — 2-bit codes with a
+                   255 sentinel after each record's bases
+    rec_starts     int64[n_records] — offset of each record's first base
+                   in ``codes``
+    rec_lengths    int64[n_records] — number of bases per record
+    """
+
+    codes: np.ndarray
+    rec_starts: np.ndarray
+    rec_lengths: np.ndarray
+    _name_spans: np.ndarray | None = None  # (n,2) byte offsets into _data
+    # FASTQ only: raw byte length of each sequence line INCLUDING a
+    # trailing '\r' — the reference's registry seq_len is cpos at the
+    # ending '\n' minus seq_pos (src/glistmaker.c:1042-1049), a byte
+    # span, not a nucleotide count (fuzz_ingest finding, round 3)
+    _seq_raw_lengths: np.ndarray | None = None
+    _data: bytes | None = None
+    # number of 'N'/'n' bytes among sequence characters (gmer_counter
+    # --stats counts Ns separately from other invalid chars,
+    # src/gmer_counter.c:929-936)
+    count_n: int = 0
+
+    @property
+    def n_records(self) -> int:
+        return len(self.rec_starts)
+
+    @property
+    def total_bases(self) -> int:
+        return int(self.rec_lengths.sum())
+
+
+def _line_index(data: np.ndarray):
+    """Return (line_starts, line_ends) excluding the trailing empty line."""
+    nl = np.flatnonzero(data == _NL)
+    starts = np.empty(len(nl) + 1, dtype=np.int64)
+    starts[0] = 0
+    starts[1:] = nl + 1
+    ends = np.append(nl, len(data))
+    keep = starts < ends  # drop empty trailing line
+    return starts[keep], ends[keep]
+
+
+def _strip_cr(data: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    e = ends.copy()
+    has_cr = (e > 0) & (data[np.minimum(e - 1, len(data) - 1)] == _CR) & (e <= len(data))
+    e[has_cr] -= 1
+    return e
+
+
+def _scatter_records(data: np.ndarray, seq_spans_start, seq_spans_end,
+                     rec_id_of_span, n_records):
+    """Compact sequence-line spans into the packed code array.
+
+    Each record's bases are concatenated; a 255 sentinel follows each
+    record. Mask-based single-pass extraction: spans are marked with a
+    +1/-1 delta array whose prefix sum is the keep mask — no per-base
+    index arrays (building 8-byte indices per base was 10x slower than
+    the whole parse needs to be).
+    """
+    span_lens = (seq_spans_end - seq_spans_start).astype(np.int64)
+    total = int(span_lens.sum())
+    delta = np.zeros(len(data) + 1, np.int32)
+    np.add.at(delta, seq_spans_start, 1)
+    np.add.at(delta, seq_spans_end, -1)
+    mask = np.cumsum(delta[:-1], dtype=np.int32) > 0
+    seq_bytes = data[mask]
+    count_n = int(((seq_bytes == ord("N")) | (seq_bytes == ord("n"))).sum())
+    codes_flat = NUCL_CODES[seq_bytes]
+    rec_lengths = np.zeros(n_records, np.int64)
+    np.add.at(rec_lengths, rec_id_of_span, span_lens)
+    # one 255 sentinel after each record: insert at cumulative lengths
+    sentinel_at = np.cumsum(rec_lengths)
+    out = np.insert(codes_flat, sentinel_at, np.uint8(255))
+    rec_starts = np.concatenate([[0], (rec_lengths + 1).cumsum()[:-1]])
+    return out, rec_starts, rec_lengths, count_n
+
+
+def _line_index_fastq(data: np.ndarray):
+    """Line index counting EVERY '\\n'-delimited segment — including
+    zero-length ones — minus the virtual segment after a trailing
+    newline. The reference's FASTQ state machine is strictly
+    line-driven (src/fasta.c:190-293: sequence ends at the first '\\n',
+    quality is exactly one line), so a record with an EMPTY sequence or
+    quality line ("@n\\n\\n+\\n\\n") still occupies four lines; dropping
+    zero-length lines (what _line_index does, correctly, for FASTA)
+    shifted the 4-line cadence and lost records (round-4 fuzz_ingest
+    finding, seed 517)."""
+    nl = np.flatnonzero(data == _NL)
+    starts = np.empty(len(nl) + 1, dtype=np.int64)
+    starts[0] = 0
+    starts[1:] = nl + 1
+    ends = np.append(nl, len(data))
+    if len(starts) and starts[-1] >= ends[-1]:
+        starts, ends = starts[:-1], ends[:-1]
+    return starts, ends
+
+
+def parse_fastq(raw: bytes) -> ParsedSequences:
+    """Standard 4-line-per-record FASTQ (name/seq/+/quality)."""
+    data = np.frombuffer(raw, dtype=np.uint8)
+    starts, ends = _line_index_fastq(data)
+    raw_ends = ends  # see parse_fasta: names keep '\r' (src/fasta.c:145-174)
+    ends = _strip_cr(data, ends)
+    n_lines = len(starts)
+    n_records = n_lines // 4
+    if n_records == 0:
+        raise ValueError("no complete FASTQ records")
+    if n_lines % 4 and n_lines - n_records * 4 >= 2:
+        # trailing partial record with a sequence line: reference's --recover
+        # path skips malformed tails; we do the same silently here
+        pass
+    seq_lines = np.arange(n_records, dtype=np.int64) * 4 + 1
+    out, rec_starts, rec_lengths, count_n = _scatter_records(
+        data, starts[seq_lines], ends[seq_lines],
+        np.arange(n_records, dtype=np.int64), n_records)
+    hdr_lines = seq_lines - 1
+    name_spans = np.stack([starts[hdr_lines] + 1, raw_ends[hdr_lines]],
+                          axis=1)
+    return ParsedSequences(out, rec_starts, rec_lengths, name_spans,
+                           (raw_ends[seq_lines] - starts[seq_lines])
+                           .astype(np.int64), raw, count_n)
+
+
+# ---------------------------------------------------------------------------
+# Streaming slab ingestion: bounded-RAM parsing for inputs larger than RAM.
+#
+# The reference never holds a whole file's parse in memory — its byte
+# state machine streams (src/fasta.c:127-288) and plain files are cut
+# into 100 MB mmap blocks at record boundaries (src/sequence-block.c:
+# 148-206, src/listmaker-queue.c:116-161). This is the same role: the
+# file is read in slabs, each slab is parsed with the vectorized parser,
+# and k-1 trailing codes carry across the seam so no window is lost when
+# a record spans slabs. Peak RAM is O(slab), not O(file).
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SlabMeta:
+    """Per-slab bookkeeping (new content only, the overlap prefix of a
+    spanning record is not double counted)."""
+    n_records: int       # records STARTED in this slab
+    total_bases: int     # sequence characters parsed in this slab
+    count_n: int         # N/n among them
+    prefix_len: int = 0  # leading codes repeated from the previous slab
+                         # (overlap carry) — slice them off for per-byte
+                         # statistics over new content
+    # FASTQ slabs only (records never span slabs there): per-record
+    # start offsets within this slab's codes array and ABSOLUTE byte
+    # offsets of each record's name in the (decompressed) stream —
+    # everything gmer_counter's read-index mode needs to stream
+    rec_starts: object = None   # int64[n_records] | None
+    name_pos: object = None     # int64[n_records] | None
+
+
+def _iter_raw_slabs(path: str, slab_bytes: int):
+    """Yield raw byte slabs from a plain/gzip file or stdin."""
+    import zlib
+    if path == "-":
+        f = sys.stdin.buffer
+        while True:
+            b = f.read(slab_bytes)
+            if not b:
+                return
+            yield b
+    else:
+        with open(path, "rb") as f:
+            head = f.read(2)
+            f.seek(0)
+            if head == b"\x1f\x8b":
+                d = zlib.decompressobj(wbits=31)
+                out = []
+                size = 0
+                while True:
+                    comp = f.read(1 << 20)
+                    if not comp:
+                        break
+                    piece = d.decompress(comp)
+                    out.append(piece)
+                    size += len(piece)
+                    if size >= slab_bytes:
+                        yield b"".join(out)
+                        out, size = [], 0
+                tail = d.flush()
+                if tail:
+                    out.append(tail)
+                if out:
+                    yield b"".join(out)
+            else:
+                while True:
+                    b = f.read(slab_bytes)
+                    if not b:
+                        return
+                    yield b
+
+
+def _parse_fasta_slab(head: bytes, continuing: bool):
+    """Parse a newline-terminated FASTA fragment whose leading lines may
+    continue a record opened in a previous slab.
+
+    Returns (codes, n_new_records, count_n, total_bases, open_at_end)
+    where ``codes`` has a 255 sentinel between records but NONE after the
+    final record when it may continue into the next slab.
+
+    Runs through the native byte-scan (native/listkernel.c) when the
+    library is available — ~6x the numpy vectorized parse — with the
+    numpy path kept as the behavioral twin and fallback (differential
+    test: tests/test_fasta.py)."""
+    try:
+        import ctypes
+
+        from genometester4_tpu_torch.utils.native import get_lib
+        lib = get_lib()
+        data = np.frombuffer(head, dtype=np.uint8)
+        codes = np.empty(len(data) + 1, np.uint8)
+        nh = ctypes.c_long(0)
+        tb = ctypes.c_long(0)
+        cn = ctypes.c_long(0)
+        m = lib.fgx_parse_fasta_slab(data, len(data), int(continuing),
+                                     codes, ctypes.byref(nh),
+                                     ctypes.byref(tb), ctypes.byref(cn))
+        if m < 0:
+            raise ValueError("no FASTA records found (no '>' lines)")
+        return codes[:m], int(nh.value), int(cn.value), int(tb.value), True
+    except (OSError, ImportError):
+        pass
+    return _parse_fasta_slab_np(head, continuing)
+
+
+def _parse_fasta_slab_np(head: bytes, continuing: bool):
+    """Numpy twin of fgx_parse_fasta_slab (fallback + differential
+    oracle)."""
+    data = np.frombuffer(head, dtype=np.uint8)
+    starts, ends = _line_index(data)
+    if len(starts) == 0:
+        return (np.empty(0, np.uint8), 0, 0, 0, continuing)
+    ends = _strip_cr(data, ends)
+    is_header = data[starts] == _GT
+    n_headers = int(is_header.sum())
+    rec_of_line = np.cumsum(is_header) - 1
+    if continuing:
+        rec_of_line = rec_of_line + 1  # slot 0 = the carried-over record
+    elif n_headers == 0:
+        raise ValueError("no FASTA records found (no '>' lines)")
+    n_recs = n_headers + (1 if continuing else 0)
+    seq_mask = (~is_header) & (rec_of_line >= 0)
+    out, _, rec_lengths, count_n = _scatter_records(
+        data, starts[seq_mask], ends[seq_mask], rec_of_line[seq_mask],
+        n_recs)
+    # _scatter_records appends a sentinel after every record incl. the
+    # last; the last record stays open across the seam, so drop it
+    if len(out) and out[-1] == 255:
+        out = out[:-1]
+    return out, n_headers, count_n, int(rec_lengths.sum()), True
+
+
+def _parse_fastq_slab_fast(head: bytes, abs_off: int):
+    """Native FASTQ slab parse (twin of parse_fastq for the slab path;
+    tests/test_listmaker.py + test_gmercounter.py lock the behavior).
+    Returns (codes, SlabMeta) or None to fall back to numpy."""
+    try:
+        import ctypes
+
+        from genometester4_tpu_torch.utils.native import get_lib
+        lib = get_lib()
+    except Exception:
+        return None
+    data = np.frombuffer(head, np.uint8)
+    codes = np.empty(len(data) + 1, np.uint8)
+    cap = len(data) // 4 + 2
+    rs = np.empty(cap, np.int64)
+    npos = np.empty(cap, np.int64)
+    m = ctypes.c_long(0)
+    tb = ctypes.c_long(0)
+    cn = ctypes.c_long(0)
+    nrec = lib.fgx_parse_fastq_slab(data, len(data), codes,
+                                    ctypes.byref(m), rs, npos,
+                                    ctypes.byref(tb), ctypes.byref(cn))
+    return codes[: m.value], SlabMeta(
+        int(nrec), int(tb.value), int(cn.value),
+        rec_starts=rs[:nrec].copy(),
+        name_pos=npos[:nrec] + abs_off)
+
+
+def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
+    """Stream a FASTA/FASTQ file as ready-to-count code slabs.
+
+    Yields (codes, SlabMeta) where ``codes`` is a uint8 2-bit code array
+    (255 = invalid/separator). Each slab is prefixed with the previous
+    slab's final k-1 codes (plus a 255 separator when the record ended
+    exactly at the seam), so running window extraction per slab loses no
+    k-mer and counts none twice. Concatenating all slabs minus prefixes
+    reproduces load_file(path).codes exactly.
+    """
+    fmt = None          # 'fasta' | 'fastq'
+    carry = b""         # undecoded partial tail (line / fastq group)
+    tail_codes = np.empty(0, np.uint8)  # last k-1 emitted codes
+    open_record = False  # a FASTA record spans the seam
+    abs_off = 0         # stream byte offset of buf[0]
+    for raw in _iter_raw_slabs(path, slab_bytes):
+        buf = carry + raw
+        if fmt is None:
+            i = 0
+            while i < len(buf) and buf[i] in (_NL, _CR, ord(" "), ord("\t")):
+                i += 1
+            if i >= len(buf):
+                abs_off += len(buf)
+                carry = b""
+                continue
+            buf = buf[i:]
+            abs_off += i
+            if buf[0] == _GT:
+                fmt = "fasta"
+            elif buf[0] == _AT:
+                fmt = "fastq"
+            else:
+                raise ValueError(
+                    f"unrecognized sequence format (first byte {buf[0]!r})")
+        if fmt == "fasta":
+            cut = buf.rfind(b"\n") + 1
+            if cut == 0:
+                # no newline in a whole slab: a monster single-line
+                # sequence — consume it directly unless it could be a
+                # header (headers are assumed to fit one slab)
+                if buf[:1] == b">" or not open_record:
+                    carry = buf
+                    continue
+                head, carry = buf, b""
+                if head.endswith(b"\r"):
+                    # could be the first half of a CRLF split across
+                    # slabs — the whole-file parse strips it (_strip_cr)
+                    head, carry = head[:-1], b"\r"
+                seq = np.frombuffer(head, np.uint8)
+                count_n = int(((seq == ord("N")) | (seq == ord("n"))).sum())
+                codes = NUCL_CODES[seq]
+                meta = SlabMeta(0, len(codes), count_n,
+                                prefix_len=len(tail_codes))
+                abs_off += len(head)
+                yield np.concatenate([tail_codes, codes]), meta
+                if k > 1:
+                    tail_codes = codes[-(k - 1):] if len(codes) >= k - 1 \
+                        else np.concatenate([tail_codes, codes])[-(k - 1):]
+                continue
+            head, carry = buf[:cut], buf[cut:]
+            codes, n_new, count_n, bases, _ = _parse_fasta_slab(
+                head, open_record)
+            starts_fresh = head[:1] == b">"
+            prefix = tail_codes
+            if open_record and starts_fresh and len(tail_codes):
+                # record ended exactly at the seam: separate windows
+                prefix = np.concatenate([tail_codes,
+                                         np.full(1, 255, np.uint8)])
+            abs_off += len(head)
+            yield np.concatenate([prefix, codes]), SlabMeta(
+                n_new, bases, count_n, prefix_len=len(prefix))
+            open_record = open_record or n_new > 0
+            if k > 1:
+                tail_codes = codes[-(k - 1):] if len(codes) >= k - 1 \
+                    else np.concatenate([tail_codes, codes])[-(k - 1):]
+        else:  # fastq: records are 4-line groups and never span slabs
+            nl = np.flatnonzero(np.frombuffer(buf, np.uint8) == _NL)
+            n_groups = len(nl) // 4
+            if n_groups == 0:
+                carry = buf
+                continue
+            cut = int(nl[4 * n_groups - 1]) + 1
+            head, carry = buf[:cut], buf[cut:]
+            fast = _parse_fastq_slab_fast(head, abs_off)
+            if fast is not None:
+                codes_fq, meta = fast
+            else:
+                parsed = parse_fastq(head)
+                codes_fq = parsed.codes
+                meta = SlabMeta(parsed.n_records, parsed.total_bases,
+                                parsed.count_n,
+                                rec_starts=parsed.rec_starts,
+                                name_pos=(parsed._name_spans[:, 0]
+                                          .astype(np.int64) + abs_off))
+            abs_off += len(head)
+            yield codes_fq, meta
+    # EOF: flush whatever remains as final (possibly unterminated) lines
+    if carry.strip():
+        if fmt == "fasta":
+            codes, n_new, count_n, bases, _ = _parse_fasta_slab(
+                carry, open_record)
+            starts_fresh = carry[:1] == b">"
+            prefix = tail_codes
+            if open_record and starts_fresh and len(tail_codes):
+                prefix = np.concatenate([tail_codes,
+                                         np.full(1, 255, np.uint8)])
+            yield np.concatenate([prefix, codes]), SlabMeta(
+                n_new, bases, count_n, prefix_len=len(prefix))
+        elif fmt == "fastq":
+            n_lines = carry.count(b"\n") + (0 if carry.endswith(b"\n") else 1)
+            if n_lines >= 4 or carry.count(b"\n") >= 3:
+                parsed = parse_fastq(carry)
+                yield parsed.codes, SlabMeta(
+                    parsed.n_records, parsed.total_bases, parsed.count_n,
+                    rec_starts=parsed.rec_starts,
+                    name_pos=(parsed._name_spans[:, 0].astype(np.int64)
+                              + abs_off))

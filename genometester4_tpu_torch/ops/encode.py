@@ -1,5 +1,5 @@
-"""k-mer words and keys on int64 tensors (device half of
-``genometester4_tpu/ops/encode.py``).
+"""k-mer words and keys on int64 tensors, and the host u64 helpers (port
+of ``genometester4_tpu/ops/encode.py``).
 
 The JAX package carries a k-mer on the device as an ``(hi, lo)`` uint32
 pair, because a TPU has no 64-bit integer datapath. A GPU has one, so the
@@ -24,13 +24,77 @@ host's u64 word arrays both map one to one onto keys.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
-from genometester4_tpu.ops.encode import join_u64, split_u64
-
 SIGN = -(1 << 63)             # int64 with only bit 63 set
 _SIGN_U64 = np.uint64(1 << 63)
+
+# 256-entry byte -> 2-bit code table; 255 marks invalid characters
+# (reference src/sequence.c:43-86: A=0 C=1 G=2 T=U=3, case-insensitive)
+NUCL_CODES = np.full(256, 255, dtype=np.uint8)
+for _ch, _v in (("A", 0), ("C", 1), ("G", 2), ("T", 3), ("U", 3)):
+    NUCL_CODES[ord(_ch)] = _v
+    NUCL_CODES[ord(_ch.lower())] = _v
+
+
+# ---------------------------------------------------------------- host u64
+
+def get_nucl_value(ch: int) -> int:
+    """Bit-trick char->code used for ANY byte, valid or not
+    (src/sequence.c:45-53) -- lenient paths depend on its garbage values."""
+    if ch & 4:
+        return ((ch >> 4) | 2) & 3
+    return (ch & 6) >> 1
+
+
+def string_to_word(s: str, strict: bool = True) -> int:
+    """Pack a nucleotide string (len <= 32) into a u64
+    (src/sequence.c:118-130).
+
+    ``strict=False`` mirrors the reference: warn on stderr for invalid
+    characters but keep packing their bit-trick values.
+    """
+    w = 0
+    for ch in s[:32]:
+        v = NUCL_CODES[ord(ch) & 0xFF]
+        if v == 255:
+            if strict:
+                raise ValueError(f"invalid character {ch!r} in k-mer string")
+            sys.stderr.write(f"Invalid character {ch} in string!\n")
+            v = get_nucl_value(ord(ch) & 0xFF)
+        w = ((w << 2) | int(v)) & 0xFFFFFFFFFFFFFFFF
+    return w
+
+
+def reverse_complement_u64(words: np.ndarray, k: int) -> np.ndarray:
+    """Vectorized reverse complement on u64 host arrays
+    (src/sequence.c:65-79)."""
+    w = (~np.asarray(words, dtype=np.uint64))  # complement every base
+    # reverse 2-bit groups of the full 64-bit value via butterfly swaps
+    w = ((w & np.uint64(0x3333333333333333)) << np.uint64(2)) | (
+        (w >> np.uint64(2)) & np.uint64(0x3333333333333333))
+    w = ((w & np.uint64(0x0F0F0F0F0F0F0F0F)) << np.uint64(4)) | (
+        (w >> np.uint64(4)) & np.uint64(0x0F0F0F0F0F0F0F0F))
+    w = w.byteswap()
+    return w >> np.uint64(64 - 2 * k)
+
+
+def split_u64(words: np.ndarray):
+    """u64 host array -> JAX's (hi, lo) uint32 pair."""
+    w = np.asarray(words, dtype=np.uint64)
+    return (w >> np.uint64(32)).astype(np.uint32), w.astype(np.uint32)
+
+
+def join_u64(hi, lo) -> np.ndarray:
+    """JAX's (hi, lo) uint32 pair -> u64 host array."""
+    return (np.asarray(hi, dtype=np.uint64) << np.uint64(32)) | np.asarray(
+        lo, dtype=np.uint64)
+
+
+# ------------------------------------------------------------ int64 tensors
 
 
 def word_mask(k: int) -> int:

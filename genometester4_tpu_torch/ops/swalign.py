@@ -1,9 +1,11 @@
-"""Affine-gap Smith-Waterman fill (port of
-``genometester4_tpu/ops/swalign.py``).
+"""Affine-gap Smith-Waterman (port of ``genometester4_tpu/ops/swalign.py``).
 
 ``sw_fill`` is the plain PyTorch version of the fill that kernels C and D
 compute (``ops/swalign_cuda.py``, ``csrc/swalign.cu``). It is what a CPU
 tensor runs, and what the kernels are held against bit for bit.
+``sw_matrices_batch`` and ``sw_traceback`` are the host fill and traceback
+of the native library (``utils.native``), which gassembler's host route
+and its ``-DDD`` trace use, as in the JAX package.
 
 Contract (the JAX package's, ``ops/swalign.py`` and
 ``ops/swalign_pallas.py``): reads are aligned to references over the
@@ -19,25 +21,75 @@ nucleotide codes A C G T N GAP NONE = 0..6. Match +2, mismatch -3, a code
 Row 0 and column 0 are 0, and so is every cell past a lane's reference
 length ``nvec[b]``; the gap states of such cells are NEG and 0. Padded read
 columns (code NONE) are computed like any other, as the kernels do.
+
+torch is imported by the functions that use it, as the JAX package imports
+jax inside ``make_sw_jax``: the gassembler CLI imports this module for its
+host traceback and imports no torch before it builds an ``Assembler``.
 """
 
 from __future__ import annotations
 
-import torch
+import numpy as np
 
-from genometester4_tpu.ops.swalign import (GAP_EXT, GAP_OPEN, M_SCORE,
-                                           MM_SCORE, N_SCORE, NEG, NUCL_N)
+M_SCORE = 2
+N_SCORE = 0
+MM_SCORE = -3
+GAP_OPEN = -4
+GAP_EXT = -2
+NEG = -1000
 
+NUCL_N = 4  # matrix.h nucleotide codes: A C G T N GAP NONE
 PAD = NUCL_N + 2   # NONE: padding code of references and reads
 
 
-def _wrap8(x: torch.Tensor) -> torch.Tensor:
+def sw_matrices_batch(ref: np.ndarray, reads: np.ndarray):
+    """One reference int8[n] against reads int8[B, m] (padded with NONE)
+    through the native fill (``fgx_sw_batch``) -> (score int16, sx int8,
+    sy int8), each [B, n+1, m+1]."""
+    from genometester4_tpu_torch.utils.native import get_lib
+    lib = get_lib()
+    B, m = reads.shape
+    n = len(ref)
+    score = np.zeros((B, n + 1, m + 1), np.int16)
+    sx = np.zeros((B, n + 1, m + 1), np.int8)
+    sy = np.zeros((B, n + 1, m + 1), np.int8)
+    if B and n and m:
+        tg_s = np.empty(m + 1, np.int16)
+        tg_l = np.empty(m + 1, np.int8)
+        lib.fgx_sw_batch(np.ascontiguousarray(ref, np.int8), n,
+                         np.ascontiguousarray(reads, np.int8), B, m,
+                         score, sx, sy, tg_s, tg_l)
+    return score, sx, sy
+
+
+def sw_traceback(score: np.ndarray, sx: np.ndarray, sy: np.ndarray,
+                 m_valid: int):
+    """Traceback of one read's matrices (reference
+    src/gassembler.c:2298-2320) through the native ``fgx_sw_traceback``:
+    the first maximum in row-major order over the first ``m_valid`` read
+    columns, then back along sx/sy. Returns the aligned (a_pos, b_pos)
+    int32 pairs in ascending order."""
+    from genometester4_tpu_torch.utils.native import get_lib
+    lib = get_lib()
+    n1, m1 = score.shape
+    cap = n1 + m1
+    a_pos = np.empty(cap, np.int32)
+    b_pos = np.empty(cap, np.int32)
+    cnt = lib.fgx_sw_traceback(
+        np.ascontiguousarray(score, np.int16),
+        np.ascontiguousarray(sx, np.int8),
+        np.ascontiguousarray(sy, np.int8), n1, m1, m_valid, a_pos, b_pos)
+    return a_pos[:cnt], b_pos[:cnt]
+
+
+def _wrap8(x):
     """int32 -> the value an int8 store keeps (C wrap)."""
     return ((x + 128) & 255) - 128
 
 
 def check_fill_inputs(refs: torch.Tensor, reads: torch.Tensor,
                       nvec: torch.Tensor) -> None:
+    import torch
     if refs.dtype != torch.int8 or refs.dim() != 2:
         raise ValueError(f"refs must be a 2-D int8 tensor, got {refs.dtype} "
                          f"of shape {tuple(refs.shape)}")
@@ -63,6 +115,7 @@ def sw_fill(refs: torch.Tensor, reads: torch.Tensor, nvec: torch.Tensor):
     tensors in int16, like ``make_sw_jax``, then one gather from the
     diagonal stack to row-major; runs on any device.
     """
+    import torch
     check_fill_inputs(refs, reads, nvec)
     B, n = refs.shape
     m = reads.shape[1]

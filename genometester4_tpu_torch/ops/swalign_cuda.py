@@ -26,6 +26,7 @@ from genometester4_tpu_torch.ops.swalign import PAD, check_fill_inputs, sw_fill
 from genometester4_tpu_torch.utils.device import resolve_device
 
 MAX_SHARED_COLS = 1024   # kernel D: one thread per column j = 0..m
+MAX_LANES_READ = 1472    # kernel C: 32 lanes of at most 46 columns each
 
 
 def _outputs(B: int, n: int, m: int, device):
@@ -47,13 +48,16 @@ def _check_cuda_contiguous(name: str, **tensors) -> None:
 def sw_fill_lanes_cuda(refs: torch.Tensor, reads: torch.Tensor,
                        nvec: torch.Tensor):
     """Kernel C: refs int8[B, n_cap], reads int8[B, m_cap], nvec int32[B]
-    (CUDA, contiguous) -> (score int16, sx int8, sy int8)[B, n_cap+1,
-    m_cap+1], as ``ops.swalign.sw_fill``."""
+    (CUDA, contiguous, m_cap <= 1472) -> (score int16, sx int8, sy int8)
+    [B, n_cap+1, m_cap+1], as ``ops.swalign.sw_fill``."""
     check_fill_inputs(refs, reads, nvec)
     _check_cuda_contiguous("sw_fill_lanes_cuda", refs=refs, reads=reads,
                            nvec=nvec)
     B, n = refs.shape
     m = reads.shape[1]
+    if m > MAX_LANES_READ:
+        raise ValueError(f"read width {m} over kernel C's {MAX_LANES_READ} "
+                         f"columns")
     score, sx, sy = _outputs(B, n, m, refs.device)
     if B:
         lib = _build.load_library()

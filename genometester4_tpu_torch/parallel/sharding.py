@@ -34,7 +34,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from genometester4_tpu.parallel.sharding import CAP_FACTOR
 from genometester4_tpu_torch.ops.encode import (SIGN, keys_from_pair,
                                                 u64_from_keys)
 from genometester4_tpu_torch.ops.merge_runs import merge_sorted_runs
@@ -43,6 +42,9 @@ from genometester4_tpu_torch.pipelines.listmaker import (count_chunk,
                                                          merge_sorted_shards,
                                                          to_host_counts)
 from genometester4_tpu_torch.utils.device import resolve_device
+
+# bucket slack over the uniform share (the JAX package's CAP_FACTOR)
+CAP_FACTOR = 3
 
 # key of the all-ones word: above every canonical word (min(w, revcomp) is
 # never all ones), so the bitonic merge's padding sorts last

@@ -3,14 +3,14 @@
 Port of the device branch of ``genometester4_tpu/pipelines/listmaker.py``
 (``count_chunks``, ``merge_sorted_shards``, ``make_list``)::
 
-  host slab parse                  genometester4_tpu.io.fasta (reused)
+  host slab parse                  io.fasta (native slab parser)
   -> 2^25-base code chunks         pad_pow2_chunk
   -> extract + canonicalize        kernel A (ops.extract_cuda)
   -> sort int64 keys               torch.sort
   -> run head/tail marks           kernel B (ops.runmarks_cuda)
   -> compact on the device         keys[head], counts from nonzero(tail)
   -> host prefix-bucketed merge    weighted count_unique per bucket
-  -> ListWriter                    genometester4_tpu.formats (reused)
+  -> ListWriter                    formats.list_format
 
 With a mesh (``make_list(mesh=...)``, or by default with more than one
 CUDA card, as in JAX), each slab is counted by the mesh route of
@@ -33,9 +33,11 @@ import time
 import numpy as np
 import torch
 
-from genometester4_tpu.formats.list_format import (ListHeader, ListWriter,
-                                                   read_list, write_list)
-from genometester4_tpu.io.fasta import iter_code_slabs
+from genometester4_tpu_torch.formats.list_format import (ListHeader,
+                                                         ListWriter,
+                                                         read_list,
+                                                         write_list)
+from genometester4_tpu_torch.io.fasta import iter_code_slabs
 from genometester4_tpu_torch.ops.encode import keys_from_u64, u64_from_keys
 from genometester4_tpu_torch.ops.kmers import extract_kmers_best
 from genometester4_tpu_torch.ops.sortcount import count_unique

@@ -1,25 +1,20 @@
-"""A KATK gassembler workload made from a seed, and the JAX package's CLIs
-run as its oracle.
+"""A KATK gassembler workload made from a seed.
 
-``chip_smoke.py`` (its katk phase), ``tools.profile_gassembler`` and the
-tests build their gassembler input here, so the fixture the card runs is
-the one the CPU tests rehearse at a smaller size:
+``chip_smoke.py`` (its katk phase), ``tools/profile_torch_gassembler.py``
+and the tests build their gassembler input here, so the fixture the card
+runs is the one the CPU tests rehearse at a smaller size:
 
     inputs = write_katk_fixture(path, seed)   # reads.fq, db.txt, regions.txt
-    proc, _ = jax_package_cli(path, "gmer_counter", INDEX_ARGS,
-                              GT4_TPU_COUNT_IMPL="host")   # -> db.idx
-    proc, wall = jax_package_cli(path, "gassembler", ARGS,
-                                 GT4_TPU_DEVICE_SW="0")    # host-route oracle
 
-The JAX package's host routes import no jax, so this runs on a machine
-without it.
+Its read index (``db.idx``) comes from ``gmer_counter INDEX_ARGS`` run in
+``path``; gassembler then runs with ``ARGS``. The port has no gmer_counter:
+the callers run the JAX package's host route in a subprocess for that
+set-up, as they run its host gassembler as the oracle.
 """
 
 from __future__ import annotations
 
 import os
-import subprocess
-import sys
 
 import numpy as np
 
@@ -34,8 +29,6 @@ INDEX_ARGS = ["-db", "db.txt", "--compile_index", "db.idx", "--num_threads",
               "1", "reads.fq"]
 ARGS = ["--dbi", "db.idx", "--region_file", "regions.txt", "--num_threads",
         "1", "--coverage", "40", "--sex", "female"]
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
 
 
 def write_katk_fixture(path: str, seed: int, n_regions: int = REGIONS):
@@ -106,30 +99,3 @@ def write_katk_fixture(path: str, seed: int, n_regions: int = REGIONS):
     with open(os.path.join(path, "regions.txt"), "w") as f:
         f.write("\n".join(regions) + "\n")
     return inputs
-
-
-def jax_package_cli(path: str, module: str, args: list, **env):
-    """Run a CLI of the JAX package on its host route in a subprocess in
-    ``path`` (``JAX_PLATFORMS=cpu``: its host routes import no jax).
-
-    Returns (the finished process, the wall of the CLI's ``main`` in s,
-    interpreter start and imports left out, or None if it raised)."""
-    wall_file = os.path.join(path, ".main_wall")
-    code = ("import sys, time\n"
-            f"from genometester4_tpu.cli.{module} import main\n"
-            "t = time.perf_counter()\n"
-            "rc = main(sys.argv[2:])\n"
-            "with open(sys.argv[1], 'w') as f:\n"
-            "    f.write(repr(time.perf_counter() - t))\n"
-            "sys.exit(rc)\n")
-    r = subprocess.run(
-        [sys.executable, "-c", code, wall_file, *args], cwd=path,
-        capture_output=True, timeout=900,
-        env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu",
-             **env})
-    wall = None
-    if os.path.exists(wall_file):
-        with open(wall_file) as f:
-            wall = float(f.read())
-        os.remove(wall_file)
-    return r, wall

@@ -1,0 +1,29 @@
+"""Host allocation setting shared by the port's file formats (the port's
+copy of ``disable_numpy_thp`` from ``genometester4_tpu/utils/backend.py``;
+the JAX package's placement cost model is not ported: the port takes an
+explicit device, ``utils.device``)."""
+
+from __future__ import annotations
+
+_thp_disabled = False
+
+
+def disable_numpy_thp():
+    """Turn off numpy's MADV_HUGEPAGE on large allocations.
+
+    First touch of a 400 MB buffer costs 1.5 s with transparent huge page
+    madvise and 0.2 s with 4 KB pages on a virtual machine (THP zeroing and
+    compaction are slow there), and the host pipelines allocate buffers of
+    hundreds of MB. Safe to call any time; idempotent."""
+    global _thp_disabled
+    if _thp_disabled:
+        return
+    try:
+        try:
+            from numpy._core import multiarray as _ma
+        except ImportError:                      # numpy < 2
+            from numpy.core import multiarray as _ma
+        _ma._set_madvise_hugepage(False)
+    except Exception:
+        pass
+    _thp_disabled = True

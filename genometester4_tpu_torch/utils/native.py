@@ -1,0 +1,184 @@
+"""The host C library (``native/fastgt_exact.c`` + ``native/listkernel.c``):
+build, load and the ctypes signatures the port calls.
+
+The port's copy of ``genometester4_tpu/native_build.py`` and of the parts
+of ``genometester4_tpu/models/fastgt_native.py`` its host code reaches:
+the FASTA/FASTQ slab parsers (``io.fasta``), the SW fill and traceback
+(``ops.swalign``), gassembler's fused host alignment, gapped alignment,
+grouping and calling (``pipelines.gassemble``), and the glibc ``rand()``
+stream (``srand``, ``rand_skip``). It is host code, not a GPU kernel.
+
+The library is built with ``cc`` at first use, with the JAX package's
+flags, into the port's ``_build/`` (never into ``native/``), named by a
+hash of the sources and flags: an edited source rebuilds, an unchanged one
+loads at once. Concurrent processes build under a file lock and publish
+with an atomic rename, so no process loads a half-linked file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+NATIVE_DIR = os.path.join(REPO_DIR, "native")
+SRC_FASTGT = os.path.join(NATIVE_DIR, "fastgt_exact.c")
+SRC_LIST = os.path.join(NATIVE_DIR, "listkernel.c")
+BUILD_DIR = os.path.join(REPO_DIR, "genometester4_tpu_torch", "_build")
+
+# plain x86-64 codegen for fastgt_exact.c (-O2, no FMA contraction to
+# diverge from the reference's default-flag build); listkernel.c is
+# integer-only, so x86-64-v3 cannot change a result bit, with plain
+# codegen as the fallback where cc rejects the flag
+CC_FASTGT = ["cc", "-O2", "-Wall", "-c", "-fPIC", "-fopenmp"]
+CC_LIST = ["cc", "-O3", "-funroll-loops", "-march=x86-64-v3", "-Wall", "-c",
+           "-fPIC", "-fopenmp"]
+CC_LIST_PLAIN = ["cc", "-O3", "-funroll-loops", "-Wall", "-c", "-fPIC",
+                 "-fopenmp"]
+CC_LINK = ["cc", "-shared", "-fopenmp"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def library_path() -> str:
+    h = hashlib.sha256(repr((CC_FASTGT, CC_LIST, CC_LINK)).encode())
+    for src in (SRC_FASTGT, SRC_LIST):
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libgt4native_{h.hexdigest()[:16]}.so")
+
+
+def _compile(path: str) -> None:
+    stem = f"{path[:-3]}.{os.getpid()}"
+    o1, o2, tmp = f"{stem}.fastgt.o", f"{stem}.listk.o", f"{stem}.so"
+    try:
+        subprocess.run([*CC_FASTGT, SRC_FASTGT, "-o", o1], check=True)
+        if subprocess.run([*CC_LIST, SRC_LIST, "-o", o2]).returncode != 0:
+            subprocess.run([*CC_LIST_PLAIN, SRC_LIST, "-o", o2], check=True)
+        subprocess.run([*CC_LINK, o1, o2, "-o", tmp, "-lm"], check=True)
+        os.replace(tmp, path)   # atomic publish
+    finally:
+        for p in (o1, o2, tmp):
+            if os.path.exists(p):
+                os.remove(p)
+
+
+def build() -> str:
+    """Compile the library unless the one for these sources exists;
+    returns its path."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    import fcntl
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "libgt4native.lock"), "w") as lf:
+        fcntl.flock(lf, fcntl.LOCK_EX)
+        if not os.path.exists(path):   # another process may have built it
+            _compile(path)
+    return path
+
+
+def get_lib() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare the signatures."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(build())
+        lp = ctypes.POINTER(ctypes.c_long)
+        i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        lib.fgx_srand.argtypes = [ctypes.c_uint]
+        lib.fgx_rand_skip.argtypes = [ctypes.c_ulong]
+        lib.fgx_rand_skip.restype = None
+        lib.fgx_sw_batch.restype = None
+        lib.fgx_sw_batch.argtypes = [
+            i8p, ctypes.c_int, i8p, ctypes.c_int, ctypes.c_int,
+            i16p, i8p, i8p, i16p, i8p]
+        lib.fgx_sw_traceback.restype = ctypes.c_int
+        lib.fgx_sw_traceback.argtypes = [
+            i16p, i8p, i8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            i32p, i32p]
+        lib.fgx_sw_align_region8.restype = ctypes.c_long
+        lib.fgx_sw_align_region8.argtypes = [
+            i8p, ctypes.c_int, i8p, ctypes.c_long, ctypes.c_int, i32p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_long, i32p, i32p, ctypes.POINTER(ctypes.c_int),
+            i32p]                         # stats (int[B*6], may be None)
+        lib.fgx_gapped_alignment.restype = ctypes.c_long
+        lib.fgx_gapped_alignment.argtypes = [
+            i8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i16p,
+            ctypes.c_long, ctypes.c_int, i32p, ctypes.c_int,
+            i32p, i32p, i16p, i64p, i64p]
+        lib.fgx_call_batch.restype = None
+        lib.fgx_call_batch.argtypes = [
+            i64p, i64p, i32p, ctypes.c_long, ctypes.c_int, i8p,
+            ctypes.c_double, ctypes.c_double, ctypes.c_long,
+            ctypes.c_long, ctypes.c_double, ctypes.c_long, ctypes.c_int,
+            ctypes.c_double, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+            i32p, i32p, i32p, f64p, f64p, f64p, f64p,
+            i32p, i32p, f64p, f64p, f64p, f64p]
+        lib.fgx_group_phase.restype = ctypes.c_long
+        lib.fgx_group_phase.argtypes = [
+            u64p, u64p,                       # tags, masks (group slots)
+            lp, lp, lp,                       # sizes, dirs, group_of
+            u64p, u64p,                       # read_tags, read_masks
+            ctypes.POINTER(ctypes.c_byte),    # ga
+            ctypes.c_long, ctypes.c_long,     # na, p_len
+            ctypes.POINTER(ctypes.c_byte),    # aligned_ref
+            ctypes.POINTER(ctypes.c_ubyte),   # known
+            lp, lp, lp, lp,                   # divergent, min/max cov, compat
+            ctypes.POINTER(ctypes.c_byte),    # consensus
+            ctypes.c_int, ctypes.c_int,       # max_groups, require_both
+            ctypes.c_long, ctypes.c_long,     # min_group_coverage/size
+            ctypes.c_long, ctypes.c_long,     # max_group_(r)divergence
+            ctypes.c_float,                   # min_group_rsize
+            ctypes.POINTER(ctypes.c_ubyte),   # included
+            lp, lp,                           # good_groups, n_good_out
+            ctypes.c_int, ctypes.c_uint,      # debug_groups, chr
+            ctypes.POINTER(ctypes.c_longlong),  # ref_pos
+            ctypes.POINTER(ctypes.c_ubyte),   # snv_ref_c
+            ctypes.POINTER(ctypes.c_ubyte),   # snv_alt_c
+            ctypes.POINTER(ctypes.c_char_p)]  # read_names (-DG2, or None)
+        llp = ctypes.POINTER(ctypes.c_longlong)
+        lib.fgx_rand.restype = ctypes.c_int
+        lib.fgx_rand.argtypes = []
+        lib.fgx_fetch_reads.restype = None
+        lib.fgx_fetch_reads.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), llp,   # file data, lengths
+            llp, ctypes.POINTER(ctypes.c_int),      # name_pos, file_idx
+            ctypes.POINTER(ctypes.c_ubyte),         # dir
+            ctypes.c_long, ctypes.c_long,           # n, maxlen
+            ctypes.POINTER(ctypes.c_ubyte),         # sequence arena
+            ctypes.POINTER(ctypes.c_byte),          # code arena
+            llp, llp, llp]                          # name_end, lengths
+        lib.fgx_parse_fasta_slab.restype = ctypes.c_long
+        lib.fgx_parse_fasta_slab.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_int, u8p, lp, lp, lp]
+        lib.fgx_parse_fastq_slab.restype = ctypes.c_long
+        lib.fgx_parse_fastq_slab.argtypes = [
+            u8p, ctypes.c_long, u8p, lp, i64p, i64p, lp, lp]
+        _lib = lib
+        return lib
+
+
+def srand(seed: int):
+    get_lib().fgx_srand(seed)
+
+
+def rand_skip(n: int):
+    """Advance the glibc rand() stream by n draws."""
+    if n:
+        get_lib().fgx_rand_skip(n)

@@ -6,6 +6,8 @@ with a GPU and no JAX it runs as
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,8 @@ from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
 from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
 from genometester4_tpu_torch.ops.sortcount import count_unique, run_marks
 from genometester4_tpu_torch.ops.swalign import sw_fill
-from genometester4_tpu_torch.ops.swalign_cuda import (sw_fill_lanes_cuda,
+from genometester4_tpu_torch.ops.swalign_cuda import (MAX_LANES_READ,
+                                                      sw_fill_lanes_cuda,
                                                       sw_fill_shared_cuda)
 
 pytestmark = pytest.mark.cuda
@@ -124,7 +127,8 @@ def test_wrappers_reject_bad_tensors(cuda):
 
 def _sw_inputs(seed, B, n, m):
     """Codes with 2% N, reads padded with 6 past a random length, per-lane
-    reference lengths from -1 to n + 2 (out of range clamps)."""
+    reference lengths from -1 to n + 2 (out of range clamps), the first
+    lane 0 and the second n + 5 where there are three or more."""
     rng = np.random.default_rng(seed)
     refs = rng.integers(0, 4, (B, n)).astype(np.int8)
     refs[rng.random((B, n)) < 0.02] = 4
@@ -133,6 +137,8 @@ def _sw_inputs(seed, B, n, m):
     mlen = rng.integers(0, m + 1, B)
     reads[np.arange(m)[None, :] >= mlen[:, None]] = 6
     nvec = rng.integers(-1, n + 3, B).astype(np.int32)
+    if B >= 3:
+        nvec[:2] = [0, n + 5]
     return (torch.from_numpy(refs), torch.from_numpy(reads),
             torch.from_numpy(nvec))
 
@@ -154,12 +160,18 @@ def _assert_sw_equal(got, want):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("B,n,m", [(1, 1, 1), (1, 200, 152), (31, 41, 33),
-                                   (33, 1, 17), (70, 17, 1), (130, 64, 100),
-                                   (512, 200, 152), (3, 0, 5)])
+@pytest.mark.parametrize("B,n,m", [
+    (1, 1, 1), (1, 200, 152), (31, 41, 33), (33, 1, 17), (70, 17, 1),
+    (130, 64, 100), (512, 200, 152), (3, 0, 5), (4, 9, 0),
+    (40, 37, 31), (40, 37, 32), (40, 37, 63), (40, 37, 65), (40, 70, 95),
+    (40, 70, 97), (9, 45, 255), (9, 45, 257), (3, 20, 1471), (3, 20, 1472),
+    (2000, 200, 152)])
 def test_sw_lanes_kernel_equals_plain(cuda, B, n, m):
-    """Kernel C against sw_fill: n or m of 1, m not a multiple of 32, B
-    not a multiple of 32, the gassembler window shape."""
+    """Kernel C against sw_fill: n or m of 0 or 1, m one less and one more
+    than a multiple of 32 (a lane's strip of columns ends inside the read
+    or past it), m at the wrapper's limit, lanes of reference length 0 and
+    past n_cap, B not a multiple of 32, the gassembler window shape and a
+    window of 2,000 reads."""
     refs, reads, nvec = _sw_inputs(B * 7 + n + m, B, n, m)
     got = sw_fill_lanes_cuda(refs.to(cuda), reads.to(cuda), nvec.to(cuda))
     _assert_sw_equal(got, sw_fill(refs, reads, nvec))
@@ -187,6 +199,15 @@ def test_sw_kernels_int8_gap_length_wrap(cuda):
     _assert_sw_equal(sw_fill_lanes_cuda(refs.contiguous().to(cuda),
                                         reads.to(cuda), nvec.to(cuda)), want)
     _assert_sw_equal(sw_fill_shared_cuda(ref.to(cuda), reads.to(cuda)), want)
+
+
+def test_sw_lanes_wrapper_raises_past_width_limit(cuda):
+    refs = torch.zeros((2, 10), dtype=torch.int8, device=cuda)
+    nvec = torch.full((2,), 10, dtype=torch.int32, device=cuda)
+    reads = torch.zeros((2, MAX_LANES_READ + 1), dtype=torch.int8,
+                        device=cuda)
+    with pytest.raises(ValueError, match="over kernel C"):
+        sw_fill_lanes_cuda(refs, reads, nvec)
 
 
 def test_sw_wrappers_reject_bad_tensors(cuda):
@@ -220,15 +241,15 @@ def test_gassembler_cuda_equals_cpu(cuda, tmp_path):
     stderr, kernel C launched in fewer launches than regions."""
     import contextlib
     import io
-    import os
 
+    from chip_smoke import reference_cli
     from genometester4_tpu_torch.cli.gassembler import main
     from genometester4_tpu_torch.tools import katk_fixture as kf
 
     kf.write_katk_fixture(str(tmp_path), seed=8, n_regions=12)
-    r, _ = kf.jax_package_cli(
-        str(tmp_path), "gmer_counter", kf.INDEX_ARGS,
-        GT4_TPU_COUNT_IMPL="host")
+    # the read index: the JAX package's gmer_counter host route (no jax)
+    r, _ = reference_cli(tmp_path, "gmer_counter", kf.INDEX_ARGS,
+                         GT4_TPU_COUNT_IMPL="host")
     assert r.returncode == 0, r.stderr
     results = {}
     old = os.getcwd()

@@ -5,9 +5,11 @@ must be byte-identical to the JAX package's CLI on its host route
 (``GT4_TPU_DEVICE_SW=0``, the native C fill, which matches the C
 reference) and on its device route (the Pallas kernel in interpret mode).
 
-The read indexes are built by the JAX package's ``gmer_counter
---compile_index`` host route, so neither the C reference nor jax on the
-device is needed."""
+The port's pipeline and CLI are its own copies (``pipelines.gassemble``,
+``cli.gassembler``); the JAX package runs here only as the reference. The
+read indexes are built by the JAX package's ``gmer_counter
+--compile_index`` host route in a subprocess, so neither the C reference
+nor jax on the device is needed."""
 
 import contextlib
 import io
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import reference_cli
 from genometester4_tpu.cli import gassembler as jax_cli
 from genometester4_tpu.ops import swalign as jax_sw
 from genometester4_tpu.ops import swalign_pallas as jax_pallas
@@ -28,6 +31,7 @@ from genometester4_tpu.pipelines import gassemble as jax_gas
 from genometester4_tpu_torch.cli import gassembler as port_cli
 from genometester4_tpu_torch.ops import swalign_cuda
 from genometester4_tpu_torch.pipelines import gassemble as port_gas
+from genometester4_tpu_torch.tools import katk_fixture as kf
 
 torch.set_num_threads(1)
 
@@ -49,12 +53,8 @@ def _write_fixture(tmp, reads, dblines, regions):
             f.write(f"@rd{i}\n{r}\n+\n{'J' * len(r)}\n")
     (tmp / "db.txt").write_text("\n".join(dblines) + "\n")
     (tmp / "regions.txt").write_text("\n".join(regions) + "\n")
-    r = subprocess.run(
-        [sys.executable, "-m", "genometester4_tpu.cli.gmer_counter", "-db",
-         "db.txt", "--compile_index", "db.idx", "--num_threads", "1",
-         "reads.fq"], cwd=tmp, capture_output=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": str(REPO),
-             "GT4_TPU_COUNT_IMPL": "host", "JAX_PLATFORMS": "cpu"})
+    r, _ = reference_cli(tmp, "gmer_counter", kf.INDEX_ARGS,
+                         GT4_TPU_COUNT_IMPL="host")
     assert r.returncode == 0, r.stderr
 
 
@@ -171,8 +171,7 @@ def route_counts(monkeypatch):
     """Counts of the port's device fills: multi-region launches, regions
     they held, and per-region fills (align_reads without prefetch)."""
     counts = Counter()
-    multi = port_gas.sw_matrices_batch_device_multi
-    single = port_gas.sw_matrices_batch_device
+    multi = swalign_cuda.sw_matrices_batch_device_multi
 
     def counting_multi(inputs, device=None):
         counts["launches"] += 1
@@ -181,11 +180,11 @@ def route_counts(monkeypatch):
 
     def counting_single(ref, reads, device=None):
         counts["per_region"] += 1
-        return single(ref, reads, device=device)
+        return multi([(ref, reads)], device=device)[0]
 
-    monkeypatch.setattr(port_gas, "sw_matrices_batch_device_multi",
+    monkeypatch.setattr(swalign_cuda, "sw_matrices_batch_device_multi",
                         counting_multi)
-    monkeypatch.setattr(port_gas, "sw_matrices_batch_device",
+    monkeypatch.setattr(swalign_cuda, "sw_matrices_batch_device",
                         counting_single)
     return counts
 
@@ -269,16 +268,17 @@ def test_num_threads_2_forked_workers(katk, monkeypatch):
     assert r.stdout == want[1]
 
 
-def _count_gathers(monkeypatch):
-    """Count get_unique_reads calls per region (keyed by its k-mers)."""
+def _count_gathers(monkeypatch, gas):
+    """Count ``gas.get_unique_reads`` calls per region (keyed by its
+    k-mers); ``gas`` is the port's or the JAX package's gassemble."""
     counts = Counter()
-    orig = jax_gas.get_unique_reads
+    orig = gas.get_unique_reads
 
     def counting(db, files, kmers, params, max_rpk):
         counts[tuple(kmers)] += 1
         return orig(db, files, kmers, params, max_rpk)
 
-    monkeypatch.setattr(jax_gas, "get_unique_reads", counting)
+    monkeypatch.setattr(gas, "get_unique_reads", counting)
     return counts
 
 
@@ -305,7 +305,7 @@ def test_prefetch_skips_cached_regions(dense_katk, monkeypatch,
 
     args = ARGS + ["--coverage", "40", "--sex", "female"]
     want = run_jax_host(monkeypatch, tmp, args)
-    gathers = _count_gathers(monkeypatch)
+    gathers = _count_gathers(monkeypatch, port_gas)
     got = run_port(monkeypatch, tmp, args)
     assert want[0] == 0 and got == want
     assert gathers == Counter({km: 1 for km, big in zip(kmers, oversized)
@@ -319,7 +319,7 @@ def test_prefetch_skips_cached_regions(dense_katk, monkeypatch,
     monkeypatch.setattr(jax_pallas, "sw_matrices_batch_device_multi",
                         native_multi)
     monkeypatch.setenv("GT4_TPU_DEVICE_SW", "1")
-    gathers.clear()
+    gathers = _count_gathers(monkeypatch, jax_gas)
     _run(jax_cli.main, tmp, args)
     assert [gathers[km] for km in kmers] == [1, 0, 2, 2]
 
@@ -381,10 +381,9 @@ def test_smoke_katk_fixture_small(tmp_path, monkeypatch, route_counts):
     through the same set-up and oracle, with the port on the CPU: the two
     dense regions subsample, the oversized one is skipped, stdout and
     stderr equal the JAX host route's."""
-    from genometester4_tpu_torch.tools import katk_fixture as kf
     inputs = kf.write_katk_fixture(str(tmp_path), seed=3, n_regions=12)
     assert len(inputs) == 12
-    r, _ = kf.jax_package_cli(
+    r, _ = reference_cli(
         str(tmp_path), "gmer_counter", kf.INDEX_ARGS,
         GT4_TPU_COUNT_IMPL="host")
     assert r.returncode == 0, r.stderr
@@ -398,7 +397,7 @@ def test_smoke_katk_fixture_small(tmp_path, monkeypatch, route_counts):
         assert cons[0] == cons[2] == jax_gas.MAX_READS_PER_REGION
         assert int(lines[1].split("\t")[2]) - int(lines[1].split("\t")[1]) \
             > 200
-        want, wall = kf.jax_package_cli(
+        want, wall = reference_cli(
             str(tmp_path), "gassembler", kf.ARGS,
             GT4_TPU_DEVICE_SW="0")
         assert want.returncode == 0 and wall > 0
@@ -408,3 +407,60 @@ def test_smoke_katk_fixture_small(tmp_path, monkeypatch, route_counts):
         assert 0 < route_counts["launches"] < len(lines)
     finally:
         (tmp_path / "db.idx").unlink()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--coverage", "40", "--sex", "female"],
+    ["--coverage", "median", "--sex", "auto", "--output", "all", "--extra"],
+])
+def test_port_host_route_equals_jax_host_route(katk, monkeypatch,
+                                               route_counts, flags):
+    """GT4_TPU_DEVICE_SW=0 through the port's CLI: its own host route (the
+    native C fill, traceback and filters per region) prints what the JAX
+    host route prints, and no device fill runs."""
+    want = run_jax_host(monkeypatch, katk, ARGS + flags)
+    monkeypatch.setenv("GT4_TPU_DEVICE_SW", "0")
+    got = _run(port_cli.main, katk, ARGS + flags, device="cpu")
+    assert want[0] == 0 and got == want
+    assert route_counts["launches"] == route_counts["per_region"] == 0
+
+
+def _print_finished(gas, cli, output, second_block):
+    """What OutputQueue.flush prints for one finished block on chr 1 over
+    [100, 103) with calls at 100, 101 and 103; with ``second_block`` an
+    empty finished block on chr 2 sits beside it, so the block goes
+    through the general loop instead of the single-block fast path."""
+    def call(pos):
+        return gas.Call(pos=pos, ref=gas.A, cov=12,
+                        counts=np.zeros(gas.GAP + 1, np.int64),
+                        nucl=(gas.A, gas.C), poly=1, p=0.9, q=0.99,
+                        p_det=0.99)
+
+    out = io.StringIO()
+    oq = cli.OutputQueue(out, gas.Params(output=output))
+    oq.finished = [gas.CallBlock(1, 100, 103, False,
+                                 calls=[call(100), call(101), call(103)])]
+    if second_block:
+        oq.finished.append(gas.CallBlock(2, 0, 1, False))
+    oq.flush()
+    assert oq.finished == []
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("output", [0, 1])
+def test_single_block_fast_path_skips_calls_past_end(output):
+    """The port's single-block fast path of ``_print_poly_best`` prints what
+    its general loop prints for a block holding a call at pos >= end: the
+    two calls inside [start, end), not the one at 103.
+
+    The JAX package (``genometester4_tpu/cli/gassembler.py:246-298``) walks
+    ``cb_f.calls`` in that fast path without the bound its general loop
+    keeps, so on the same input its fast path prints three lines and its
+    general loop two; this test shows that too."""
+    port = [_print_finished(port_gas, port_cli, output, second)
+            for second in (False, True)]
+    jax = [_print_finished(jax_gas, jax_cli, output, second)
+           for second in (False, True)]
+    assert port[0] == port[1] == jax[1]
+    assert port[0].count("\n") == 2 and "\t103\t" not in port[0]
+    assert jax[0].count("\n") == 3 and "\t103\t" in jax[0]

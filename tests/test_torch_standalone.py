@@ -1,0 +1,180 @@
+"""The port stands alone: ``genometester4_tpu_torch`` imports torch and its
+own modules, never jax and nothing of the JAX package ``genometester4_tpu``.
+
+Statically: every ``.py`` under the package is walked with ``ast`` for an
+import of either (at the top or inside a function) and for a string that
+runs one with ``-m`` or ``-c``. At run time: a fresh process imports every
+module of the port, runs its ``make_list`` on a small FASTA and its
+gassembler CLI on a small KATK fixture, both on the CPU, and then finds
+neither package in ``sys.modules``. The read index of the fixture is the
+one set-up step that runs the JAX package (its ``gmer_counter
+--compile_index`` host route, in a subprocess of its own)."""
+
+import ast
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "genometester4_tpu_torch"
+FORBIDDEN = ("genometester4_tpu", "jax", "jaxlib")
+# a module name run by ``python -m`` or imported by ``python -c`` code
+RUNS_FORBIDDEN = re.compile(
+    r"(-m\s+|import\s+|from\s+)(genometester4_tpu|jax)(\.|\s|$)")
+
+
+def _port_files():
+    return sorted(p for p in PORT.rglob("*.py")
+                  if "_build" not in p.parts)
+
+
+def _module_names():
+    return [".".join(p.relative_to(REPO).with_suffix("").parts)
+            .removesuffix(".__init__") for p in _port_files()]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _violations(path: Path) -> list:
+    tree = ast.parse(path.read_text(), str(path))
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names
+                      if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and _forbidden(node.module or ""):
+                found.append((node.lineno, node.module))
+        elif isinstance(node, ast.Call):
+            # importlib.import_module("...") / __import__("...")
+            fn = node.func
+            name = getattr(fn, "attr", getattr(fn, "id", ""))
+            if (name in ("import_module", "__import__") and node.args
+                    and isinstance(node.args[0], ast.Constant)
+                    and isinstance(node.args[0].value, str)
+                    and _forbidden(node.args[0].value)):
+                found.append((node.lineno, node.args[0].value))
+    # strings handed to a subprocess: "-m", "<module>" argument pairs, and
+    # code for -c (any string but a docstring that imports one)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)}
+    consts = [n for n in ast.walk(tree)
+              if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    for a, b in zip(consts, consts[1:]):
+        if a.value == "-m" and _forbidden(b.value):
+            found.append((b.lineno, f"-m {b.value}"))
+    found += [(c.lineno, c.value.strip()[:60]) for c in consts
+              if id(c) not in docs and RUNS_FORBIDDEN.search(c.value)]
+    return found
+
+
+def test_static_walk_finds_every_kind_of_forbidden_import(tmp_path):
+    """The walker itself: each form it must catch, and none of the forms
+    a docstring or the port's own imports take."""
+    bad = tmp_path / "bad.py"
+    bad.write_text(
+        "import jax\n"
+        "import genometester4_tpu.ops.encode as e\n"
+        "from genometester4_tpu.cli import gassembler\n"
+        "def f():\n"
+        "    from jax import numpy\n"
+        "    import importlib\n"
+        "    importlib.import_module('genometester4_tpu.io.fasta')\n"
+        "    subprocess.run([sys.executable, '-m',\n"
+        "                    'genometester4_tpu.cli.gmer_counter'])\n"
+        "    code = 'import sys\\n'\n"
+        "    code += 'from genometester4_tpu.cli.x import main\\n'\n")
+    assert len(_violations(bad)) == 7
+    good = tmp_path / "good.py"
+    good.write_text(
+        '"""Port of ``genometester4_tpu/ops/encode.py`` (the JAX package\n'
+        'imports jax there)."""\n'
+        "import genometester4_tpu_torch.ops.encode\n"
+        "from genometester4_tpu_torch.utils import native\n"
+        "x = 'genometester4_tpu/pipelines/gassemble.py:657'\n")
+    assert _violations(good) == []
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = {str(p.relative_to(REPO)): v for p in files
+           if (v := _violations(p))}
+    assert bad == {}
+
+
+_RUN = r'''
+import contextlib, importlib, io, json, os, sys
+names = json.loads(sys.argv[1])
+for name in names:
+    importlib.import_module(name)
+from genometester4_tpu_torch.pipelines.listmaker import make_list
+hdr = make_list([sys.argv[2]], 11, sys.argv[3], device="cpu")
+from genometester4_tpu_torch.cli.gassembler import main
+from genometester4_tpu_torch.tools import katk_fixture as kf
+out, err = io.StringIO(), io.StringIO()
+os.chdir(sys.argv[4])
+with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+    rc = main(kf.ARGS, device="cpu")
+mods = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("genometester4_tpu", "jax", "jaxlib"))
+print(json.dumps({"n_words": hdr.n_words, "rc": rc,
+                  "lines": out.getvalue().count("\n"), "modules": mods}))
+'''
+
+
+def test_port_runs_without_the_jax_package(tmp_path):
+    """Every module imported, make_list and the gassembler CLI run on the
+    CPU in a fresh process: no module of jax or of the JAX package is
+    loaded at the end."""
+    from chip_smoke import reference_cli
+    from genometester4_tpu_torch.tools import katk_fixture as kf
+    rng = np.random.default_rng(12)
+    fa = tmp_path / "in.fa"
+    seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), 5000,
+                     p=[0.24, 0.25, 0.25, 0.25, 0.01])
+    fa.write_bytes(b">a\n" + seq.tobytes() + b"\n")
+    katk = tmp_path / "katk"
+    katk.mkdir()
+    kf.write_katk_fixture(str(katk), seed=5, n_regions=6)
+    r, _ = reference_cli(katk, "gmer_counter", kf.INDEX_ARGS,
+                         GT4_TPU_COUNT_IMPL="host")
+    assert r.returncode == 0, r.stderr
+    env = {k: v for k, v in os.environ.items() if k != "GT4_TPU_DEVICE_SW"}
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c", _RUN, json.dumps(_module_names()),
+             str(fa), str(tmp_path / "out.list"), str(katk)],
+            capture_output=True, text=True, timeout=600,
+            env={**env, "PYTHONPATH": str(REPO)})
+    finally:
+        (katk / "db.idx").unlink()
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.splitlines()[-1])
+    assert got["rc"] == 0 and got["lines"] > 4 and got["n_words"] > 1000
+    assert got["modules"] == []
+
+
+@pytest.mark.parametrize("module", _module_names())
+def test_each_module_imports_alone(module):
+    """Each module of the port in a fresh process: it imports, and brings
+    in nothing of jax or of the JAX package."""
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('genometester4_tpu', 'jax', 'jaxlib')))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"

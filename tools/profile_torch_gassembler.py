@@ -1,16 +1,19 @@
+#!/usr/bin/env python3
 """Where the time goes in the port's gassembler route.
 
-    python -m genometester4_tpu_torch.tools.profile_gassembler [--seed 44]
+    python3 tools/profile_torch_gassembler.py [--seed 44]
 
 Run from the repository root on a machine with one CUDA GPU. It builds the
-KATK fixture of ``chip_smoke.py``'s katk phase (``tools.katk_fixture``,
-from --seed) and its read index, then prints:
+KATK fixture of ``chip_smoke.py``'s katk phase
+(``genometester4_tpu_torch/tools/katk_fixture.py``, from --seed) and its
+read index (the JAX package's gmer_counter host route, in a subprocess),
+then prints:
 
-1. wall    ``main()`` wall of the JAX package's host route
-           (``GT4_TPU_DEVICE_SW=0``: native C fill, traceback and filters
-           fused per region) and of the port on CUDA, 3 warm runs each, in
-           turns, in this one process. The port's stdout must equal the
-           host route's.
+1. wall    ``main()`` wall of three routes, 3 warm runs each, in turns, in
+           this one process: the JAX package's host route and the port's
+           own host route (``GT4_TPU_DEVICE_SW=0``: native C fill,
+           traceback and filters fused per region), and the port on CUDA.
+           Every stdout must equal the JAX host route's.
 2. host    one port run under cProfile: cumulative seconds of the
            functions each stage of a region runs.
 3. device  one port run under ``torch.profiler``: the card's busy time
@@ -33,29 +36,33 @@ import sys
 import tempfile
 import time
 
-import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from genometester4_tpu.cli.gassembler import main as host_main
-from genometester4_tpu_torch.cli.gassembler import main as port_main
-from genometester4_tpu_torch.tools import katk_fixture as kf
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from chip_smoke import reference_cli  # noqa: E402
+from genometester4_tpu.cli.gassembler import main as jax_main  # noqa: E402
+from genometester4_tpu_torch.cli import gassembler as port_cli  # noqa: E402
+from genometester4_tpu_torch.tools import katk_fixture as kf  # noqa: E402
 
 RUNS = 3
+GAS = "genometester4_tpu_torch/pipelines/gassemble.py"
 # (file, function) whose cumulative time the cProfile'd port run reports
 STAGES = [
-    ("genometester4_tpu/pipelines/gassemble.py", "get_unique_reads"),
-    ("genometester4_tpu/pipelines/gassemble.py", "get_read_sequences"),
-    ("genometester4_tpu_torch/pipelines/gassemble.py", "prefetch_device_sw"),
+    (GAS, "get_unique_reads"),
+    (GAS, "get_read_sequences"),
+    (GAS, "prefetch_device_sw"),
     ("genometester4_tpu_torch/ops/swalign_cuda.py",
      "sw_matrices_batch_device_multi"),
     ("genometester4_tpu_torch/ops/swalign_cuda.py", "_to_numpy"),
-    ("genometester4_tpu/pipelines/gassemble.py", "align_reads"),
-    ("genometester4_tpu/ops/swalign.py", "sw_traceback"),
-    ("genometester4_tpu/pipelines/gassemble.py", "count_divergent"),
-    ("genometester4_tpu/pipelines/gassemble.py", "create_gapped_alignment"),
-    ("genometester4_tpu/pipelines/gassemble.py", "_group_phase"),
-    ("genometester4_tpu/pipelines/gassemble.py", "_recalculate_and_call"),
+    (GAS, "align_reads"),
+    ("genometester4_tpu_torch/ops/swalign.py", "sw_traceback"),
+    (GAS, "count_divergent"),
+    (GAS, "create_gapped_alignment"),
+    (GAS, "_group_phase"),
+    (GAS, "_recalculate_and_call"),
 ]
 
 
@@ -74,16 +81,27 @@ def timed(main, args, **kw):
     return out.getvalue(), wall
 
 
-def host(args):
+def jax_host(args):
     os.environ["GT4_TPU_DEVICE_SW"] = "0"
     try:
-        return timed(host_main, args)
+        return timed(jax_main, args)
+    finally:
+        del os.environ["GT4_TPU_DEVICE_SW"]
+
+
+def port_host(args):
+    os.environ["GT4_TPU_DEVICE_SW"] = "0"
+    try:
+        return timed(port_cli.main, args, device="cuda")
     finally:
         del os.environ["GT4_TPU_DEVICE_SW"]
 
 
 def port(args):
-    return timed(port_main, args, device="cuda")
+    return timed(port_cli.main, args, device="cuda")
+
+
+ROUTES = {"jax host": jax_host, "port host": port_host, "port": port}
 
 
 def device_busy(prof) -> dict:
@@ -112,26 +130,26 @@ def device_busy(prof) -> dict:
 def run(seed: int) -> None:
     with tempfile.TemporaryDirectory(prefix="gt4_profile_gasm_") as tmp:
         kf.write_katk_fixture(tmp, seed)
-        r, _ = kf.jax_package_cli(tmp, "gmer_counter", kf.INDEX_ARGS,
-                                  GT4_TPU_COUNT_IMPL="host")
+        r, _ = reference_cli(tmp, "gmer_counter", kf.INDEX_ARGS,
+                             GT4_TPU_COUNT_IMPL="host")
         if r.returncode:
             raise SystemExit(r.stderr.decode(errors="replace"))
         old = os.getcwd()
         os.chdir(tmp)
         try:
             warm = kf.ARGS + ["--max_regions", "8"]
-            host(warm)
-            port(warm)
-            walls = {"host": [], "port": []}
+            for route in ROUTES.values():
+                route(warm)
+            walls = {name: [] for name in ROUTES}
             outs = set()
             for i in range(RUNS):
-                for name in (("host", "port") if i % 2 == 0
-                             else ("port", "host")):
-                    out, wall = (host if name == "host" else port)(kf.ARGS)
+                for name in (list(ROUTES) if i % 2 == 0
+                             else list(ROUTES)[::-1]):
+                    out, wall = ROUTES[name](kf.ARGS)
                     outs.add(out)
                     walls[name].append(wall)
             if len(outs) != 1:
-                raise SystemExit("port stdout differs from the host route's")
+                raise SystemExit("the routes' stdouts differ")
             for name, w in walls.items():
                 print(f"wall {name}: main() s over {RUNS} warm runs in "
                       f"turns: " + " ".join(f"{x:.4f}" for x in w)
@@ -172,7 +190,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=44)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("profile_gassembler: CUDA is not available", file=sys.stderr)
+        print("profile_torch_gassembler: CUDA is not available",
+              file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

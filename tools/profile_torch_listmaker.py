@@ -40,8 +40,9 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import GENOME_BP, K, genome_bases, write_fasta  # noqa: E402
-from genometester4_tpu.formats.list_format import ListWriter  # noqa: E402
-from genometester4_tpu.io.fasta import iter_code_slabs  # noqa: E402
+from genometester4_tpu_torch.formats.list_format import (  # noqa: E402
+    ListWriter)
+from genometester4_tpu_torch.io.fasta import iter_code_slabs  # noqa: E402
 from genometester4_tpu_torch.pipelines.listmaker import (  # noqa: E402
     count_chunks, make_list, merge_sorted_shards)
 
