@@ -34,13 +34,18 @@ Run from the repository root. Phases, each of which must pass:
 5. shared  kernel D's entry point (``sw_pallas_matrices``) over the reads
            of 64 regions; equal to kernel C's entry on the same input.
 6. kernels each CUDA kernel against its plain PyTorch version on the card
-           at the shapes of its path (kernel E also at L = 1 and at tied
-           keys with 2L below its tile): equal bits required (integer
+           at the shapes of its path (kernel A also on codes 1 byte past a
+           16-byte boundary; kernel E also at L = 1, at tied keys with 2L
+           below its tile, at L equal to its tile, at an odd L and on keys
+           8 bytes past a 16-byte boundary): equal bits required (integer
            contract, tolerance 0); median times of both are printed, with
            each kernel's bound (the larger of its bytes over 3.35 TB/s and
            its integer operations over 16.7 T op/s, from this run's
            inputs) and, for kernel E, the one PyTorch call that computes
-           the same function (a stable segmented torch.sort).
+           the same function (a stable segmented torch.sort). Also timed:
+           kernel A at the mesh route's chunk (2^23), kernel E's partition
+           and tile passes (torch.profiler) and one whole mesh merge round
+           (merge_sorted_runs with its sortedness check and gather).
 7. card    the card's name and power limit from nvidia-smi.
 
 The last two lines of stdout are a JSON object of the kernels and
@@ -70,7 +75,8 @@ import numpy as np
 K = 25
 GENOME_BP = 50_000_000
 N_KERNEL = 1 << 25
-EXTRACT_KS = (1, 16, 17, 25, 31, 32)
+EXTRACT_KS = (1, 5, 16, 17, 25, 31, 32)
+N_MESH_CHUNK = 1 << 23   # the mesh route's chunk (kernel A's shape there)
 
 SHARED_REGIONS = 64      # kernel D's path: regions for sw_pallas_matrices
 SW_LANES_SHAPE = (512, 200, 152)   # kernel C: window of reads, n_cap, m_cap
@@ -191,6 +197,21 @@ def median_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def batch_ms(torch, fn, count: int = 20) -> float:
+    """ms per call of ``count`` calls queued back to back between two
+    events: the card's time per launch once the wrapper's host work
+    overlaps the previous launch (``median_ms`` times one call alone)."""
+    fn()  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(count):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / count
+
+
 def bound(name: str, n_bytes: float, n_elems: float):
     """(bound ms, "bytes" or "operations") for ``n_bytes`` moved and
     ``n_elems`` elements of OPS_PER[name] integer operations."""
@@ -246,6 +267,29 @@ def phase_kernels(torch, seed: int) -> dict:
             if k == K and canonical:   # codes in, int64 keys out
                 res["extract"] = [0, ms, pms, *bound(
                     "extract", 9 * N_KERNEL, N_KERNEL), None]
+                qms = batch_ms(torch, lambda: extract_kmers_cuda(codes, k))
+                log(f"kernel extract k={k} canonical=1 n=2^25: {qms:.4f} "
+                    f"ms per call, 20 back to back")
+    # codes 1 byte past a 16-byte boundary (a contiguous slice)
+    for k in (K, 32):
+        sl = codes[1:]
+        kk, kv = extract_kmers_cuda(sl, k)
+        pk, pv = extract_kmers(sl, k)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(torch, kk, pk),
+                  max_abs_err(torch, kv, pv) if k == 32 else 0)
+        check(err == 0, f"extract kernel != plain on unaligned codes at "
+                        f"k={k} (max abs err {err})")
+        err_a = max(err_a, err)
+    log(f"kernel extract: equal bits on codes 1 byte past a 16-byte "
+        f"boundary, n=2^25-1, k={K} and 32")
+    chunk = codes[:N_MESH_CHUNK]
+    ms = median_ms(torch, lambda: extract_kmers_cuda(chunk, K), 20)
+    bbms = batch_ms(torch, lambda: extract_kmers_cuda(chunk, K))
+    bms, by = bound("extract", 9 * N_MESH_CHUNK, N_MESH_CHUNK)
+    log(f"kernel extract k={K} canonical=1 n=2^23 (the mesh route's chunk): "
+        f"{ms:.4f} ms ({bbms:.4f} ms per call, 20 back to back)   bound "
+        f"{bms:.4f} ms ({by})")
     res["extract"][0] = err_a
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -288,26 +332,61 @@ def phase_kernels(torch, seed: int) -> dict:
     return res
 
 
+def merge_kernel_split(torch, keys, L):
+    """Device ms of kernel E's two passes (partition, tile) per call, from
+    ``torch.profiler`` over 5 calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            merge_runs_cuda(keys, L)
+        torch.cuda.synchronize()
+    us = {"partition": 0.0, "tile": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for part in us:
+            if f"merge_{part}_kernel" in e.name:
+                us[part] += e.time_range.elapsed_us()
+    return {part: v / 5e3 for part, v in us.items()}
+
+
 def phase_merge_kernel(torch, seed: int) -> list:
     """Kernel E against ``merge_runs`` on the card: keys, positions and a
-    gathered int64 payload bit for bit at the mesh route's shape, at L = 1
-    and at tied keys with 2L below the 2048-slot tile. Returns [max abs
-    err, ms, plain ms, bound ms, bound by, library ms] at the path's
-    shape."""
-    from genometester4_tpu_torch.ops.merge_runs import merge_runs
+    gathered int64 payload bit for bit at the mesh route's shape, at L = 1,
+    at tied keys with 2L below the 3840-slot tile, at L equal to the tile,
+    at an odd L (tiles crossing spans) and on keys 8 bytes past a 16-byte
+    boundary. Times the whole mesh merge round at the path's shape and the
+    kernel's two passes. Returns [max abs err, ms, plain ms, bound ms,
+    bound by, library ms] at the path's shape."""
+    from genometester4_tpu_torch.ops.merge_runs import (merge_runs,
+                                                        merge_sorted_runs)
     from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     sentinel = (1 << 63) - 1
     out = None
+    err_e = 0
     for name, n, L, card in (("path", MERGE_N, MERGE_L, 1 << 50),
                              ("L=1", 1 << 20, 1, 1 << 50),
-                             ("ties, 2L=200", 200 * 5000, 100, 5)):
+                             ("ties, 2L=200", 200 * 5000, 100, 5),
+                             ("L=tile", 7680 * 128, 3840, 1 << 50),
+                             ("odd L", 8 * 99_999, 99_999, 1000),
+                             ("keys 8 B past 16", 1 << 22, 1 << 19, 1 << 50)):
         keys = torch.randint(0, card, (n // L, L), generator=gen, device=dev)
         if name == "path":
             keys[:, MERGE_CAP:] = sentinel
         keys = torch.sort(keys, dim=1).values.view(-1)
+        if name == "keys 8 B past 16":
+            buf = torch.empty(n + 1, dtype=torch.int64, device=dev)
+            buf[1:] = keys
+            keys = buf[1:]
+            check(keys.data_ptr() % 16 == 8, "keys are 16-byte aligned")
         payload = torch.randint(0, 1 << 62, (n,), generator=gen, device=dev)
         got, gpos = merge_runs_cuda(keys, L)
         want, wpos = merge_runs(keys, L)
@@ -317,6 +396,7 @@ def phase_merge_kernel(torch, seed: int) -> list:
                   max_abs_err(torch, payload[gpos], payload[wpos]))
         check(err == 0, f"merge_runs kernel != plain at {name} n={n} L={L} "
                         f"(max abs err {err})")
+        err_e = max(err_e, err)
         ms = median_ms(torch, lambda: merge_runs_cuda(keys, L), 20)
         pms = median_ms(torch, lambda: merge_runs(keys, L), 5)
         lms = median_ms(torch, lambda: torch.sort(
@@ -328,7 +408,22 @@ def phase_merge_kernel(torch, seed: int) -> list:
             f"int64 payload)")
         if out is None:
             out = [err, ms, pms, bms, by, lms]
+            split = merge_kernel_split(torch, keys, L)
+            counts = torch.randint(0, 1 << 31, (n,), generator=gen,
+                                   device=dev)
+            rms = median_ms(torch, lambda: merge_sorted_runs(
+                (keys, counts), L), 10)
+            log(f"kernel merge_runs {name}: "
+                f"{batch_ms(torch, lambda: merge_runs_cuda(keys, L)):.4f} ms "
+                f"per call, 20 back to back; partition pass "
+                f"{split['partition']:.4f} ms + tile pass {split['tile']:.4f} "
+                f"ms (torch.profiler); one mesh merge round "
+                f"merge_sorted_runs((keys, counts), L) {rms:.4f} ms "
+                f"(sortedness check with its host sync, kernel E, the "
+                f"counts gather): kernel E {ms / rms:.1%} of the round")
+            del counts
         del keys, payload, got, gpos, want, wpos
+    out[0] = err_e
     return out
 
 

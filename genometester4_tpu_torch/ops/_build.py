@@ -47,6 +47,8 @@ _SIGNATURES = {
     # keys, out, pos, splits, n, run length, stream
     "gt4_merge_runs": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                        _P],
+    # kernel E's output slots per tile (one splits word each)
+    "gt4_merge_runs_tile": [],
 }
 
 

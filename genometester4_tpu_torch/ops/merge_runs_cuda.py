@@ -16,8 +16,6 @@ import torch
 from genometester4_tpu_torch.ops import _build
 from genometester4_tpu_torch.ops.merge_runs import check_runs
 
-_TILE = 2048   # output slots per block (kTile in csrc/merge_runs.cu)
-
 
 def merge_runs_cuda(keys: torch.Tensor, L: int):
     """keys int64[n] (CUDA, contiguous; sorted length-L runs, n % 2L == 0)
@@ -32,9 +30,9 @@ def merge_runs_cuda(keys: torch.Tensor, L: int):
     merged = torch.empty_like(keys)
     pos = torch.empty(n, dtype=torch.int32, device=keys.device)
     if n:
-        splits = torch.empty(-(-n // _TILE), dtype=torch.int64,
-                             device=keys.device)
         lib = _build.load_library()
+        splits = torch.empty(-(-n // lib.gt4_merge_runs_tile()),
+                             dtype=torch.int64, device=keys.device)
         with torch.cuda.device(keys.device):
             err = lib.gt4_merge_runs(
                 keys.data_ptr(), merged.data_ptr(), pos.data_ptr(),

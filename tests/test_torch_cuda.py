@@ -56,6 +56,31 @@ def test_extract_kernel_equals_plain(cuda, k, n):
             assert torch.equal(valid_c.cpu(), valid_p)
 
 
+EXTRACT_TILE = 4096   # windows per block of kernel A (csrc/extract.cu)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 17, 25, 31, 32])
+def test_extract_kernel_tile_edges_and_unaligned_codes(cuda, k):
+    """Kernel A at n = tile - 1, tile, tile + 1, tile + k - 1 and 2^25,
+    both canonical modes, and on codes 1, 7 and 15 bytes past a 16-byte
+    boundary (contiguous slices of one tensor)."""
+    full = _codes(k, (1 << 25) + 16).to(cuda)
+    for n in (EXTRACT_TILE - 1, EXTRACT_TILE, EXTRACT_TILE + 1,
+              EXTRACT_TILE + k - 1, 1 << 25):
+        for off in (0, 1, 7, 15):
+            if n == 1 << 25 and off not in (0, 1):
+                continue
+            codes = full[off:off + n]
+            assert codes.is_contiguous() and codes.data_ptr() % 16 == off
+            for canonical in (True, False):
+                keys_c, valid_c = extract_kmers_cuda(codes, k, canonical)
+                keys_p, valid_p = extract_kmers(codes, k, canonical)
+                torch.cuda.synchronize()
+                assert torch.equal(keys_c, keys_p), (n, off, canonical)
+                if k == 32:
+                    assert torch.equal(valid_c, valid_p), (n, off)
+
+
 @pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 1_000_003])
 def test_run_marks_kernel_equals_plain(cuda, n):
     rng = np.random.default_rng(n)
@@ -313,6 +338,35 @@ def test_merge_runs_kernel_sentinel_tails_and_int32_positions(cuda, L, n):
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[1].max()) == n - 1
+
+
+MERGE_TILE = 3840   # output slots per tile of kernel E (csrc/merge_runs.cu)
+
+
+@pytest.mark.parametrize("L,n", [
+    (MERGE_TILE // 2 - 1, 4 * (MERGE_TILE // 2 - 1)),
+    (MERGE_TILE // 2, 6 * MERGE_TILE), (MERGE_TILE, 4 * MERGE_TILE),
+    (MERGE_TILE + 1, 6 * (MERGE_TILE + 1)), (3 * MERGE_TILE - 7,
+                                             2 * (3 * MERGE_TILE - 7)),
+    (1 << 16, 1 << 20), (99_999, 8 * 99_999)])
+@pytest.mark.parametrize("card", [1, 5, 1 << 62])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_merge_runs_kernel_tile_edges(cuda, L, n, card, offset):
+    """Kernel E at L below, equal to and above its tile, odd L (tiles
+    crossing spans), all-equal keys (card 1), ties (card 5), INT64_MAX
+    tails, and keys 8 bytes past a 16-byte boundary (offset 1): keys,
+    positions and a gathered payload equal merge_runs."""
+    buf = torch.zeros(n + 1, dtype=torch.int64, device=cuda)
+    keys = buf[offset:offset + n]
+    keys.copy_(_sorted_runs(cuda, L + n + card, n, L, card,
+                            sentinel_tails=card > 5))
+    assert keys.is_contiguous() and keys.data_ptr() % 16 == 8 * offset
+    got = merge_runs_cuda(keys, L)
+    want = merge_runs(keys, L)
+    payload = torch.arange(n, device=cuda) * 7 + 3
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(payload[got[1]], payload[want[1]])
 
 
 def test_merge_sorted_runs_cuda_payloads_equal_cpu(cuda):

@@ -129,3 +129,143 @@ def test_extract_rejects_bad_arguments():
         extract_kmers(codes, 33)
     with pytest.raises(ValueError, match="uint8"):
         extract_kmers(codes.to(torch.int32), 5)
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's schedule (csrc/extract.cu), emulated in numpy: the 16-byte code
+# chunks (aligned, funnel-shifted from a misaligned pointer, or byte by byte
+# at the end), 128 threads x 32 windows per block, priming with k - 1 codes,
+# the rolling forward word and reverse complement, the last-255 index and
+# the swizzled 16-byte staging of keys and mask bytes.
+
+A_THREADS, A_WIN = 128, 32
+A_TILE = A_THREADS * A_WIN
+A_CHUNKS = (A_TILE + 32) // 16
+
+
+def _brev64(x):
+    """__brevll on a uint64 array."""
+    table = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)],
+                     np.uint64)
+    out = np.zeros_like(x)
+    for i in range(8):
+        byte = (x >> np.uint64(8 * i)) & np.uint64(0xFF)
+        out |= table[byte.astype(np.int64)] << np.uint64(56 - 8 * i)
+    return out
+
+
+def _reverse_complement_bits(w, k):
+    x = _brev64(~w)
+    m = np.uint64(0x5555555555555555)
+    x = ((x >> np.uint64(1)) & m) | ((x & m) << np.uint64(1))
+    return x >> np.uint64(64 - 2 * k)
+
+
+def _load_chunk(mem, off, n, g):
+    """load_chunk: codes [g, g + 16), 255 past n; the codes sit at byte
+    ``off`` of ``mem``, whose other bytes the kernel must never use."""
+    if off == 0 and g + 16 <= n:
+        return mem[g:g + 16]
+    if off != 0 and g >= off and g - off + 32 <= n:
+        a = off + g - off                 # the aligned chunk's address
+        assert a % 16 == 0
+        x = mem[a:a + 32].view("<u4").astype(np.uint64)
+        s, b = off >> 2, 8 * (off & 3)
+        y = x[s:s + 5]
+        words = ((y[1:] << np.uint64(32)) | y[:4]) >> np.uint64(b)
+        return (words & np.uint64(0xFFFFFFFF)).astype("<u4").view(np.uint8)
+    return np.array([mem[off + g + j] if g + j < n else 255
+                     for j in range(16)], np.uint8)
+
+
+def _key_slot(t, m):
+    return t * (A_WIN // 2) + (m ^ (t & 7))
+
+
+def _mask_slot(t, h):
+    return 2 * t + (h ^ ((t >> 2) & 1))
+
+
+def _emulate_extract(codes, k, canonical, off):
+    n = len(codes)
+    rng = np.random.default_rng(n + off)
+    mem = rng.integers(0, 256, off + n + 64).astype(np.uint8)  # garbage
+    mem[off:off + n] = codes
+    blocks = -(-n // A_TILE)
+    keys = np.zeros(n, np.uint64)
+    valid = np.zeros(n, np.uint8)
+    t = np.arange(A_THREADS)
+    kmask = np.uint64((1 << (2 * k)) - 1 if k < 32 else 2 ** 64 - 1)
+    for blk in range(blocks):
+        base = blk * A_TILE
+        tile = np.concatenate([_load_chunk(mem, off, n, base + 16 * i)
+                               for i in range(A_CHUNKS)])
+        # thread t's codes [32t, 32t + 64): four 16-byte shared loads
+        c = np.stack([tile[32 * i:32 * i + 64] for i in t]).astype(np.uint64)
+        fwd = np.zeros(A_THREADS, np.uint64)
+        last = np.full(A_THREADS, -1)
+        for q in range(k - 1):
+            last = np.where(c[:, q] == 255, q, last)
+            fwd = (fwd << np.uint64(2)) | (c[:, q] & np.uint64(3))
+        s_keys = np.zeros((A_TILE // 2, 2), np.uint64)
+        s_mask = np.zeros((A_TILE // 16, 16), np.uint8)
+        win_keys = np.zeros((A_THREADS, A_WIN), np.uint64)
+        win_ok = np.zeros((A_THREADS, A_WIN), np.uint8)
+        for j in range(A_WIN):
+            q = j + k - 1
+            last = np.where(c[:, q] == 255, q, last)
+            code = c[:, q] & np.uint64(3)
+            fwd = ((fwd << np.uint64(2)) | code) & kmask
+            if j == 0:
+                rc = _reverse_complement_bits(fwd, k)
+            else:
+                rc = (rc >> np.uint64(2)) | (
+                    (code ^ np.uint64(3)) << np.uint64(2 * k - 2))
+            word = np.where(canonical & (rc < fwd), rc, fwd)
+            ok = last < j
+            flag = np.uint64(1 << (2 * k)) if k < 32 else np.uint64(0)
+            word = np.where(ok, word, flag) ^ np.uint64(1 << 63)
+            win_keys[:, j] = word
+            win_ok[:, j] = ok
+        for m in range(A_WIN // 2):
+            slots = _key_slot(t, m)
+            # 16-byte stores: each quarter warp hits 8 distinct bank groups
+            assert all(len(set(slots[i:i + 8] % 8)) == 8
+                       for i in range(0, A_THREADS, 8))
+            s_keys[slots] = win_keys[:, 2 * m:2 * m + 2]
+        for h in range(2):
+            slots = _mask_slot(t, h)
+            assert all(len(set(slots[i:i + 8] % 8)) == 8
+                       for i in range(0, A_THREADS, 8))
+            s_mask[slots] = win_ok[:, 16 * h:16 * h + 16]
+        v = np.arange(A_TILE // 2)
+        read = _key_slot(v // (A_WIN // 2), v % (A_WIN // 2))
+        assert all(len(set(read[i:i + 8] % 8)) == 8
+                   for i in range(0, len(v), 8))
+        out = s_keys[read].ravel()
+        u = np.arange(A_TILE // 16)
+        outm = s_mask[_mask_slot(u >> 1, u & 1)].ravel()
+        end = min(base + A_TILE, n)
+        keys[base:end] = out[:end - base]
+        valid[base:end] = outm[:end - base]
+    return keys.view(np.int64), valid.astype(bool)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 17, 25, 31, 32])
+def test_extract_kernel_schedule_emulation_equals_plain(k):
+    """The emulated kernel at n = tile - 1, tile, tile + 1 and tile + k - 1
+    (windows straddling tile and halo, the trailing k - 1 windows), codes
+    pointers 0, 1, 7 and 15 bytes past a 16-byte boundary, both canonical
+    modes: keys (and the k = 32 mask) equal extract_kmers bit for bit."""
+    for n, off in ((A_TILE - 1, 1), (A_TILE, 0), (A_TILE + 1, 15),
+                   (A_TILE + k - 1, 7), (2 * A_TILE + 333, 0)):
+        codes = _codes(n * 3 + k + off, n=n)
+        # a 255 where the tile meets its halo
+        codes[A_TILE - 2:A_TILE + 1] = [0, 255, 3][:n - A_TILE + 2]
+        for canonical in (True, False):
+            keys, valid = _emulate_extract(codes, k, canonical, off)
+            want_k, want_v = extract_kmers(torch.from_numpy(codes), k,
+                                           canonical)
+            np.testing.assert_array_equal(keys, want_k.numpy())
+            if k == 32:
+                np.testing.assert_array_equal(valid, want_v.numpy())

@@ -177,3 +177,166 @@ def test_merge_preconditions_raise():
         merge_sorted_runs((keys, keys[:8]), 4)
     with pytest.raises(ValueError, match="unsupported device"):
         merge_sorted_runs((keys.to("meta"),), 4)
+
+
+# ---------------------------------------------------------------------------
+# Kernel E's schedule (csrc/merge_runs.cu), emulated in numpy: the partition
+# pass, each tile's slices copied into a ring slot from the aligned key
+# before them (keys pointers 0 or 8 bytes past a 16-byte boundary), the
+# per-thread diagonal search and register-blocked merge of 15 slots (the
+# padding key past a slice read, never taken), the staging at a stride of
+# 15 and the per-thread global merge of tiles that cross spans, with the
+# tiles taken in a persistent grid's stride order.
+
+E_THREADS, E_ITEMS = 256, 15
+E_TILE = E_THREADS * E_ITEMS
+E_SLOT = E_TILE + 4
+
+
+def _merge_path(a, na, b, nb, d):
+    lo, hi = max(d - nb, 0), min(d, na)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if a[mid] <= b[d - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+class _View:
+    """a[i] = arr[start + i], for the searches over a slice."""
+
+    def __init__(self, arr, start):
+        self.arr, self.start = arr, start
+
+    def __getitem__(self, i):
+        return self.arr[self.start + i]
+
+
+def _describe(splits, tile, n, run, odd):
+    span = 2 * run
+    start = tile * E_TILE
+    end = min(start + E_TILE, n)
+    cnt = end - start
+    base = start // span * span
+    if end - 1 >= base + span:
+        return dict(start=start, cnt=cnt, cross=True)
+    d0, d1 = start - base, end - base
+    a0 = splits[tile]
+    a1 = run if d1 == span else splits[tile + 1]
+    a1 = min(max(a1, a0, d1 - run), a0 + cnt, run)
+    na = a1 - a0
+    ga, gb = base + a0, base + run + d0 - a0
+    sa, rb = (ga + odd) & 1, (gb + odd) & 1
+    return dict(start=start, cnt=cnt, cross=False, na=na, nb=cnt - na,
+                ga=ga, gb=gb, sa=sa, rb=rb, sb=((sa + na + 1) & ~1) + rb)
+
+
+def _copy_slice(slot, dst, keys, n, g, s, cnt):
+    """copy_slice: 16-byte copies of keys [g - s, g + cnt) where both keys
+    lie in [0, n) and start on an even word (asserted), else 8-byte ones."""
+    for i in range((s + cnt + 1) // 2):
+        j = g - s + 2 * i
+        if 0 <= j and j + 2 <= n:
+            assert (j + _copy_slice.odd) % 2 == 0 and (dst + 2 * i) % 2 == 0
+            slot[dst + 2 * i:dst + 2 * i + 2] = keys[j:j + 2]
+        else:
+            for h in (0, 1):
+                if 0 <= j + h < n:
+                    slot[dst + 2 * i + h] = keys[j + h]
+
+
+def _emulate_merge(keys, L, odd, grid=3):
+    n = len(keys)
+    n_tiles = -(-n // E_TILE)
+    splits = []
+    for t in range(n_tiles):
+        o = t * E_TILE
+        base = o // (2 * L) * (2 * L)
+        splits.append(_merge_path(_View(keys, base), L,
+                                  _View(keys, base + L), L, o - base))
+    out = np.full(n, -7, np.int64)
+    pos = np.full(n, -7, np.int64)
+    written = np.zeros(n, np.int64)
+    rng = np.random.default_rng(n + L)
+    _copy_slice.odd = odd
+    order = [t for b in range(grid) for t in range(b, n_tiles, grid)]
+    for tile in order:
+        d = _describe(splits, tile, n, L, odd)
+        start, cnt = d["start"], d["cnt"]
+        if d["cross"]:
+            span = 2 * L
+            for tid in range(E_THREADS):
+                o = start + tid * E_ITEMS
+                o_end = min(o + E_ITEMS, start + cnt)
+                while o < o_end:
+                    sb = o // span * span
+                    a, b = _View(keys, sb), _View(keys, sb + L)
+                    ia = _merge_path(a, L, b, L, o - sb)
+                    ib = o - sb - ia
+                    for o in range(o, min(sb + span, o_end)):
+                        if ib >= L or (ia < L and a[ia] <= b[ib]):
+                            out[o], pos[o] = a[ia], sb + ia
+                            ia += 1
+                        else:
+                            out[o], pos[o] = b[ib], sb + L + ib
+                            ib += 1
+                        written[o] += 1
+                    o += 1
+            continue
+        # a ring slot holding the last tile's garbage
+        slot = rng.integers(-2 ** 63, 2 ** 63 - 1, E_SLOT, dtype=np.int64)
+        na, nb, sa, sb = d["na"], d["nb"], d["sa"], d["sb"]
+        _copy_slice(slot, 0, keys, n, d["ga"], sa, na)
+        _copy_slice(slot, sb - d["rb"], keys, n, d["gb"], d["rb"], nb)
+        stage_k = np.zeros(E_TILE, np.int64)
+        stage_p = np.zeros(E_TILE, np.int64)
+        for tid in range(E_THREADS):
+            dd = min(tid * E_ITEMS, cnt)
+            a, b = _View(slot, sa), _View(slot, sb)
+            ia = _merge_path(a, na, b, nb, dd)
+            ib = dd - ia
+            assert sa + ia < E_SLOT and sb + ib < E_SLOT
+            ka, kb = a[ia], b[ib]
+            for j in range(E_ITEMS):
+                if dd + j >= cnt:
+                    break
+                if ib >= nb or (ia < na and ka <= kb):
+                    stage_k[dd + j], stage_p[dd + j] = ka, d["ga"] + ia
+                    ia += 1
+                    assert sa + ia < E_SLOT
+                    ka = a[ia]
+                else:
+                    stage_k[dd + j], stage_p[dd + j] = kb, d["gb"] + ib
+                    ib += 1
+                    assert sb + ib < E_SLOT
+                    kb = b[ib]
+        out[start:start + cnt] = stage_k[:cnt]
+        pos[start:start + cnt] = stage_p[:cnt]
+        written[start:start + cnt] += 1
+    assert (written == 1).all()
+    return out, pos
+
+
+@pytest.mark.parametrize("L,n", [(1, 2), (1, 8000), (100, 2200),
+                                 (1000, 8000), (E_TILE // 2, 2 * E_TILE),
+                                 (E_TILE, 4 * E_TILE), (E_TILE + 1,
+                                                        2 * E_TILE + 2),
+                                 (3001, 6002 * 3), (5000, 20000)])
+@pytest.mark.parametrize("card", [1, 5, 1 << 62])
+def test_merge_kernel_schedule_emulation_equals_plain(L, n, card):
+    """The emulated kernel at L = 1, 2L below a tile (tiles crossing spans),
+    2L equal to a tile, L equal to and one past it, odd L, all-equal keys
+    (card 1), ties (card 5) and INT64_MAX tails, with the keys pointer on
+    both 8-byte parities: keys and positions equal merge_runs."""
+    rng = np.random.default_rng(L + n + card)
+    keys = rng.integers(-card, card, n).astype(np.int64).reshape(-1, L)
+    keys[::3, L // 2:] = (1 << 63) - 1     # sentinel tails
+    keys = np.sort(keys, axis=1).ravel()
+    want_k, want_p = merge_runs(torch.from_numpy(keys), L)
+    for odd in (0, 1):
+        got_k, got_p = _emulate_merge(keys, L, odd)
+        np.testing.assert_array_equal(got_k, want_k.numpy())
+        np.testing.assert_array_equal(got_p, want_p.numpy())
+
