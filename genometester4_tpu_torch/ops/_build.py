@@ -38,12 +38,14 @@ _SIGNATURES = {
     # keys, head, tail, stats, n, n_valid, stream
     "gt4_run_marks": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                       _P],
-    # refs, reads, nvec, score, sx, sy, B, n, m, stream
-    "gt4_sw_lanes": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    # refs, reads, nvec, score, sx, sy, scratch, B, n, m, stream
+    "gt4_sw_lanes": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, _P],
-    # ref, reads, score, sx, sy, B, n, m, stream
-    "gt4_sw_shared": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    # ref, reads, score, sx, sy, scratch, B, n, m, stream
+    "gt4_sw_shared": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, _P],
+    # kernels C and D's scratch bytes per read for (n, m)
+    "gt4_sw_scratch": [ctypes.c_int, ctypes.c_int],
     # keys, out, pos, splits, n, run length, stream
     "gt4_merge_runs": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                        _P],

@@ -25,15 +25,22 @@ from genometester4_tpu_torch.ops import _build
 from genometester4_tpu_torch.ops.swalign import PAD, check_fill_inputs, sw_fill
 from genometester4_tpu_torch.utils.device import resolve_device
 
-MAX_SHARED_COLS = 1024   # kernel D: one thread per column j = 0..m
-MAX_LANES_READ = 1472    # kernel C: 32 lanes of at most 46 columns each
-
 
 def _outputs(B: int, n: int, m: int, device):
     shape = (B, n + 1, m + 1)
     return (torch.empty(shape, dtype=torch.int16, device=device),
             torch.empty(shape, dtype=torch.int8, device=device),
             torch.empty(shape, dtype=torch.int8, device=device))
+
+
+def _scratch(lib, B: int, n: int, m: int, device):
+    """The kernels' slab boundary in device memory, where the library asks
+    for one (wide reads against a reference of more than 511 rows); None
+    otherwise."""
+    per_read = lib.gt4_sw_scratch(n, m)
+    if not per_read:
+        return None
+    return torch.empty(B * per_read, dtype=torch.uint8, device=device)
 
 
 def _check_cuda_contiguous(name: str, **tensors) -> None:
@@ -48,23 +55,22 @@ def _check_cuda_contiguous(name: str, **tensors) -> None:
 def sw_fill_lanes_cuda(refs: torch.Tensor, reads: torch.Tensor,
                        nvec: torch.Tensor):
     """Kernel C: refs int8[B, n_cap], reads int8[B, m_cap], nvec int32[B]
-    (CUDA, contiguous, m_cap <= 1472) -> (score int16, sx int8, sy int8)
+    (CUDA, contiguous, any widths) -> (score int16, sx int8, sy int8)
     [B, n_cap+1, m_cap+1], as ``ops.swalign.sw_fill``."""
     check_fill_inputs(refs, reads, nvec)
     _check_cuda_contiguous("sw_fill_lanes_cuda", refs=refs, reads=reads,
                            nvec=nvec)
     B, n = refs.shape
     m = reads.shape[1]
-    if m > MAX_LANES_READ:
-        raise ValueError(f"read width {m} over kernel C's {MAX_LANES_READ} "
-                         f"columns")
     score, sx, sy = _outputs(B, n, m, refs.device)
     if B:
         lib = _build.load_library()
+        scratch = _scratch(lib, B, n, m, refs.device)
         with torch.cuda.device(refs.device):
             err = lib.gt4_sw_lanes(
                 refs.data_ptr(), reads.data_ptr(), nvec.data_ptr(),
-                score.data_ptr(), sx.data_ptr(), sy.data_ptr(), B, n, m,
+                score.data_ptr(), sx.data_ptr(), sy.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B, n, m,
                 torch.cuda.current_stream().cuda_stream)
         _build.check_launch(lib, err, "sw lanes")
         sw_fill_lanes_cuda.launches += 1
@@ -76,7 +82,7 @@ sw_fill_lanes_cuda.launches = 0
 
 def sw_fill_shared_cuda(ref: torch.Tensor, reads: torch.Tensor):
     """Kernel D: one reference int8[n] for all reads int8[B, m] (CUDA,
-    contiguous, m + 1 <= 1024) -> (score int16, sx int8, sy int8)
+    contiguous, any widths) -> (score int16, sx int8, sy int8)
     [B, n+1, m+1], as ``ops.swalign.sw_fill`` with ``nvec = n``."""
     if ref.dtype != torch.int8 or ref.dim() != 1:
         raise ValueError(f"ref must be a 1-D int8 tensor, got {ref.dtype} "
@@ -89,16 +95,15 @@ def sw_fill_shared_cuda(ref: torch.Tensor, reads: torch.Tensor):
         raise ValueError("ref and reads must be on one device")
     B, m = reads.shape
     n = ref.shape[0]
-    if m + 1 > MAX_SHARED_COLS:
-        raise ValueError(f"read width {m} over kernel D's "
-                         f"{MAX_SHARED_COLS - 1} columns")
     score, sx, sy = _outputs(B, n, m, ref.device)
     if B:
         lib = _build.load_library()
+        scratch = _scratch(lib, B, n, m, ref.device)
         with torch.cuda.device(ref.device):
             err = lib.gt4_sw_shared(
                 ref.data_ptr(), reads.data_ptr(), score.data_ptr(),
-                sx.data_ptr(), sy.data_ptr(), B, n, m,
+                sx.data_ptr(), sy.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B, n, m,
                 torch.cuda.current_stream().cuda_stream)
         _build.check_launch(lib, err, "sw shared")
         sw_fill_shared_cuda.launches += 1

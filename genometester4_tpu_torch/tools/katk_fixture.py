@@ -99,3 +99,71 @@ def write_katk_fixture(path: str, seed: int, n_regions: int = REGIONS):
     with open(os.path.join(path, "regions.txt"), "w") as f:
         f.write("\n".join(regions) + "\n")
     return inputs
+
+
+LONG_REGIONS = 24        # 200 bp regions, 2 kb apart
+LONG_SPACING = 2000
+LONG_READ_BP = (1500, 1700)   # read lengths, uniform
+LONG_DEPTH = 12          # reads per haplotype covering each region
+LONG_ARGS = ARGS + ["--max_read_length", "1600"]
+
+
+def write_long_read_fixture(path: str, seed: int,
+                            n_regions: int = LONG_REGIONS) -> int:
+    """A KATK gassembler input with long reads in ``path``: reads.fq,
+    db.txt, regions.txt; gassembler then runs with ``LONG_ARGS``.
+
+    ``n_regions`` regions of 200 bp, 2 kb apart, with anchor 25-mers every
+    30 bp. Each region is covered by 2 x 12 reads of 1,500-1,700 bp that
+    span it whole (so no read reaches a neighbouring region), with 0.2%
+    substitutions and half of them reverse complemented; the second
+    haplotype carries a het SNV in every region and a het 2 bp deletion in
+    every fourth. Reads past 1,600 bp are cut by ``--max_read_length``,
+    with a WARNING each. Returns the number of reads.
+    """
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[alphabet] = np.frombuffer(b"TGCA", np.uint8)
+    lut = np.zeros(256, np.int8)
+    lut[alphabet] = np.arange(4, dtype=np.int8)
+    genome = rng.choice(alphabet, size=(n_regions + 1) * LONG_SPACING
+                        + LONG_READ_BP[1])
+    regions, dblines, fastq = [], [], []
+    lo_bp, hi_bp = LONG_READ_BP
+    for r in range(n_regions):
+        start = LONG_SPACING * (r + 1)
+        ref = genome[start:start + REGION_BP]
+        kmers = [genome[p:p + 25].tobytes().decode()
+                 for p in range(start + 5, start + REGION_BP - 30, 30)]
+        dblines.extend(f"L{r}_{i}\t1\t{km}" for i, km in enumerate(kmers))
+        regions.append(f"1\t{start}\t{start + REGION_BP}\t"
+                       f"{ref.tobytes().decode()}\t" + "\t".join(kmers))
+        lo = start + REGION_BP - hi_bp   # every read starts at or after lo
+        hap1 = genome[lo:start + hi_bp]
+        hap2 = hap1.copy()
+        snv = start - lo + 100
+        hap2[snv] = alphabet[(lut[hap2[snv]] + 1) % 4]
+        if r % 4 == 0:
+            cut = start - lo + 150
+            hap2 = np.concatenate([hap2[:cut], hap2[cut + 2:]])
+        for h, hap in enumerate((hap1, hap2)):
+            for i in range(LONG_DEPTH):
+                rl = int(rng.integers(lo_bp, hi_bp + 1))
+                # the read spans the region: [at, at + rl) covers it whole
+                at = int(rng.integers(start - lo + REGION_BP - rl,
+                                      start - lo + 1))
+                seq = hap[at:at + rl].copy()
+                err = rng.random(rl) < 0.002
+                seq[err] = alphabet[rng.integers(0, 4, int(err.sum()))]
+                if rng.random() < 0.5:
+                    seq = comp[seq][::-1]
+                fastq.append(b"@l%d_%d_%d\n%s\n+\n%s\n" % (
+                    r, h, i, seq.tobytes(), b"I" * rl))
+    with open(os.path.join(path, "reads.fq"), "wb") as f:
+        f.write(b"".join(fastq))
+    with open(os.path.join(path, "db.txt"), "w") as f:
+        f.write("\n".join(dblines) + "\n")
+    with open(os.path.join(path, "regions.txt"), "w") as f:
+        f.write("\n".join(regions) + "\n")
+    return len(fastq)

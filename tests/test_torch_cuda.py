@@ -21,9 +21,9 @@ from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
 from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
 from genometester4_tpu_torch.ops.sortcount import count_unique, run_marks
 from genometester4_tpu_torch.ops.swalign import sw_fill
-from genometester4_tpu_torch.ops.swalign_cuda import (MAX_LANES_READ,
-                                                      sw_fill_lanes_cuda,
-                                                      sw_fill_shared_cuda)
+from genometester4_tpu_torch.ops.swalign_cuda import (
+    sw_fill_lanes_cuda, sw_fill_shared_cuda, sw_matrices_batch_device,
+    sw_pallas_matrices)
 
 pytestmark = pytest.mark.cuda
 
@@ -189,24 +189,33 @@ def _assert_sw_equal(got, want):
     (1, 1, 1), (1, 200, 152), (31, 41, 33), (33, 1, 17), (70, 17, 1),
     (130, 64, 100), (512, 200, 152), (3, 0, 5), (4, 9, 0),
     (40, 37, 31), (40, 37, 32), (40, 37, 63), (40, 37, 65), (40, 70, 95),
-    (40, 70, 97), (9, 45, 255), (9, 45, 257), (3, 20, 1471), (3, 20, 1472),
-    (2000, 200, 152)])
+    (40, 70, 97), (9, 45, 255), (9, 45, 256), (9, 45, 257), (3, 20, 1471),
+    (3, 20, 1472), (3, 20, 1473), (5, 40, 2000), (3, 30, 4000),
+    (3, 600, 300), (2000, 200, 152)])
 def test_sw_lanes_kernel_equals_plain(cuda, B, n, m):
     """Kernel C against sw_fill: n or m of 0 or 1, m one less and one more
     than a multiple of 32 (a lane's strip of columns ends inside the read
-    or past it), m at the wrapper's limit, lanes of reference length 0 and
-    past n_cap, B not a multiple of 32, the gassembler window shape and a
-    window of 2,000 reads."""
+    or past it), m one less, equal to and one more than a 256-column slab,
+    reads of up to 4,000 columns (16 slabs), a reference of 600 rows with
+    two slabs (the boundary in the scratch tensor), lanes of reference
+    length 0 and past n_cap, B not a multiple of 32, the gassembler window
+    shape and a window of 2,000 reads."""
     refs, reads, nvec = _sw_inputs(B * 7 + n + m, B, n, m)
     got = sw_fill_lanes_cuda(refs.to(cuda), reads.to(cuda), nvec.to(cuda))
     _assert_sw_equal(got, sw_fill(refs, reads, nvec))
 
 
-@pytest.mark.parametrize("B,n,m", [(1, 1, 1), (128, 200, 150), (31, 41, 33),
-                                   (33, 1, 17), (70, 17, 1), (5, 7, 1023),
-                                   (2, 0, 5)])
+@pytest.mark.parametrize("B,n,m", [
+    (1, 1, 1), (31, 41, 33), (33, 1, 17), (70, 17, 1), (2, 0, 5), (3, 9, 0),
+    (5, 7, 1023), (5, 7, 1024), (3, 30, 1500), (2, 20, 4000), (1, 200, 150),
+    (127, 200, 150), (128, 200, 150), (129, 200, 150), (2000, 200, 150),
+    (6, 600, 300), (2, 17000, 40)])
 def test_sw_shared_kernel_equals_plain(cuda, B, n, m):
-    """Kernel D against sw_fill with one reference for all reads."""
+    """Kernel D against sw_fill with one reference for all reads: widths
+    past one 256-column slab up to 4,000, B that leaves the last block of
+    four reads short, n = 0, a reference of 600 rows with two slabs (the
+    boundary in the scratch tensor) and one of 17,000 rows (read from
+    device memory, not staged)."""
     refs, reads, _ = _sw_inputs(B * 11 + n + m, B, n, m)
     ref = refs[0] if B else torch.zeros(n, dtype=torch.int8)
     got = sw_fill_shared_cuda(ref.to(cuda), reads.to(cuda))
@@ -226,13 +235,46 @@ def test_sw_kernels_int8_gap_length_wrap(cuda):
     _assert_sw_equal(sw_fill_shared_cuda(ref.to(cuda), reads.to(cuda)), want)
 
 
-def test_sw_lanes_wrapper_raises_past_width_limit(cuda):
-    refs = torch.zeros((2, 10), dtype=torch.int8, device=cuda)
-    nvec = torch.full((2,), 10, dtype=torch.int32, device=cuda)
-    reads = torch.zeros((2, MAX_LANES_READ + 1), dtype=torch.int8,
-                        device=cuda)
-    with pytest.raises(ValueError, match="over kernel C"):
-        sw_fill_lanes_cuda(refs, reads, nvec)
+def test_sw_lanes_kernel_past_width_limit(cuda):
+    """Kernel C has no width limit: reads of 1,473 columns (one past its
+    earlier 32 x 46) equal sw_fill."""
+    refs, reads, nvec = _sw_inputs(1473, 4, 10, 1473)
+    got = sw_fill_lanes_cuda(refs.to(cuda), reads.to(cuda), nvec.to(cuda))
+    _assert_sw_equal(got, sw_fill(refs, reads, nvec))
+
+
+def test_sw_kernels_gap_wrap_across_slab_boundary(cuda):
+    """A read that matches the reference for 300 columns and then leaves a
+    left gap of more than 200: its length wraps as int8 and is carried over
+    the slab boundary at column 512."""
+    rng = np.random.default_rng(512)
+    ref = torch.from_numpy(rng.integers(0, 4, 310).astype(np.int8))
+    reads = torch.from_numpy(np.stack([
+        np.concatenate([ref.numpy()[:300], rng.integers(0, 4, 400)]),
+        rng.integers(0, 4, 700)]).astype(np.int8))
+    refs = ref.expand(2, -1).contiguous()
+    nvec = torch.full((2,), 310, dtype=torch.int32)
+    want = sw_fill(refs, reads, nvec)
+    assert int(want[1][0, 300, 512]) > 0   # -length, wrapped
+    _assert_sw_equal(sw_fill_lanes_cuda(refs.to(cuda), reads.to(cuda),
+                                        nvec.to(cuda)), want)
+    _assert_sw_equal(sw_fill_shared_cuda(ref.to(cuda), reads.to(cuda)), want)
+
+
+def test_sw_entries_wide_reads(cuda):
+    """Kernel D's entry (sw_pallas_matrices) equals kernel C's
+    (sw_matrices_batch_device) for a region with 2,000-column reads."""
+    rng = np.random.default_rng(2000)
+    ref = rng.integers(0, 5, 150).astype(np.int8)
+    reads = rng.integers(0, 5, (12, 2000)).astype(np.int8)
+    reads[1::2, 1500:] = 6
+    before = (sw_fill_lanes_cuda.launches, sw_fill_shared_cuda.launches)
+    got = sw_pallas_matrices(ref, reads, device="cuda")
+    want = sw_matrices_batch_device(ref, reads, device="cuda")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert (sw_fill_lanes_cuda.launches,
+            sw_fill_shared_cuda.launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_sw_wrappers_reject_bad_tensors(cuda):
@@ -253,9 +295,6 @@ def test_sw_wrappers_reject_bad_tensors(cuda):
         sw_fill_shared_cuda(refs[0, ::2], reads)
     with pytest.raises(ValueError, match="1-D int8"):
         sw_fill_shared_cuda(refs, reads)
-    with pytest.raises(ValueError, match="columns"):
-        sw_fill_shared_cuda(refs[0], torch.zeros((2, 1024), dtype=torch.int8,
-                                                 device=cuda))
     with pytest.raises(ValueError, match="CUDA"):
         sw_fill_shared_cuda(refs[0].cpu(), reads.cpu())
 

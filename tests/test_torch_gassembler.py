@@ -464,3 +464,37 @@ def test_single_block_fast_path_skips_calls_past_end(output):
     assert port[0] == port[1] == jax[1]
     assert port[0].count("\n") == 2 and "\t103\t" not in port[0]
     assert jax[0].count("\n") == 3 and "\t103\t" in jax[0]
+
+
+@pytest.fixture(scope="module")
+def long_reads(tmp_path_factory):
+    """The long-read fixture of chip_smoke.py's longread phase at three
+    regions: reads of 1,500-1,700 bp, those past --max_read_length 1,600
+    cut with a WARNING, so the fill sees reads past the 1,472 columns a
+    lane of 32 x 46 once covered."""
+    tmp = tmp_path_factory.mktemp("torch_long_reads")
+    kf.write_long_read_fixture(str(tmp), seed=1600, n_regions=3)
+    r, _ = reference_cli(tmp, "gmer_counter", kf.INDEX_ARGS,
+                         GT4_TPU_COUNT_IMPL="host")
+    assert r.returncode == 0, r.stderr
+    yield tmp
+    (tmp / "db.idx").unlink()
+
+
+def test_long_reads_past_old_lane_width(long_reads, monkeypatch,
+                                        route_counts):
+    """--max_read_length 1,600 on reads of up to 1,700 bp: the port's
+    batched fill (sw_fill here, kernel C on the card) takes reads 1,600
+    columns wide, and stdout and stderr (the truncation WARNINGs included)
+    equal the JAX host route's. Windows of at least 16 reads keep the
+    plain fill's memory small; the port's own host route agrees too."""
+    args = kf.LONG_ARGS
+    want = run_jax_host(monkeypatch, long_reads, args)
+    assert want[0] == 0 and "WARNING: Read is longer" in want[2]
+    assert want[1].count("\n") >= 3
+    monkeypatch.setenv("GT4_TPU_SW_BATCH_LANES", "16")
+    got = run_port(monkeypatch, long_reads, args)
+    assert got == want
+    assert 0 < route_counts["launches"] and route_counts["per_region"] == 0
+    monkeypatch.setenv("GT4_TPU_DEVICE_SW", "0")
+    assert _run(port_cli.main, long_reads, args, device="cpu") == want
