@@ -20,12 +20,28 @@ Run from the repository root. Phases, each of which must pass:
            once with GT4_TPU_MESH_MERGE=resort and once with =bitonic. Both
            .list files must equal phase 2's; kernels A and B must launch in
            both runs, kernel E (merge runs) in the bitonic run only.
+4a. gmercount  gmer_counter's count mode through the port's CLI on CUDA:
+           a text database of 2,000,000 nodes x 2 25-mers (a word of phase
+           2's genome and its alt allele, one base changed) and 100 Mbp of
+           150 bp FASTQ reads drawn from that genome at 2x with 0.2%
+           substitutions, half reverse complemented (four 2^25-base chunks).
+           The port's card route and its native host route
+           (GT4_TPU_COUNT_IMPL=host) run in this process in turns (card,
+           host, host, card); each stdout and stderr must equal the JAX
+           package's host route in a subprocess, and kernel A must launch
+           on the card route only. Cut to size: users count 30x genomes
+           against databases of tens of millions of words; 2x and 4 M
+           words keep the phase inside the smoke's time limit. Also timed:
+           the card route's stages, and one chunk's count step in JAX's
+           join direction (the database searches the sorted chunk) and in
+           the other (each window searches the database).
 4. katk    KATK gassembler through the port's CLI on CUDA, over 1,000
            exome-style 200 bp regions (plus one oversized region between
            two regions of more than 200 reads) with 150 bp reads at 40x
-           made from --seed; the read index comes from the JAX package's
-           gmer_counter --compile_index host route in a subprocess (set-up,
-           untimed). The port's device route and its own host route
+           made from --seed; the read index is built by the port's
+           gmer_counter --compile_index on CUDA and must equal, byte for
+           byte, the one the JAX package's host route builds in a
+           subprocess. The port's device route and its own host route
            (GT4_TPU_DEVICE_SW=0: native C fill) run in this process, in
            turns (device, host, host, device). Every run's stdout and
            stderr must equal the JAX package's host route, run in a
@@ -34,8 +50,9 @@ Run from the repository root. Phases, each of which must pass:
 4b. longread  the port's gassembler CLI on CUDA over 24 regions covered
            by reads of 1,500-1,700 bp with ``--max_read_length 1600`` (the
            reads past it cut with a WARNING), so kernel C fills reads 1,600
-           columns wide in slabs; stdout and stderr must equal the JAX
-           package's host route in a subprocess, and kernel C must launch.
+           columns wide in slabs; its read index is built as in phase 4;
+           stdout and stderr must equal the JAX package's host route in a
+           subprocess, and kernel C must launch.
 5. shared  kernel D's entry point (``sw_pallas_matrices``) over the reads
            of 64 regions; equal to kernel C's entry on the same input.
 6. kernels each CUDA kernel against its plain PyTorch version on the card
@@ -59,17 +76,19 @@ The last two lines of stdout are a JSON object of the kernels and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 them; so does a machine without CUDA. Nothing of JAX or of the JAX package
 is imported here: the JAX package runs only in subprocesses, as the
-reference and to build the read index.
+reference.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import cProfile
 import filecmp
 import io
 import json
 import os
+import pstats
 import statistics
 import struct
 import subprocess
@@ -93,6 +112,9 @@ SW_WIDE_SHAPE = (128, 200, 2000)   # kernels C and D on reads of 2,000
 # in runs of cap2, each run's tail (past cap ~ 6.29 M) the INT64_MAX padding
 MERGE_N, MERGE_L, MERGE_CAP = 1 << 26, 1 << 23, 6_291_438
 MESH_SLOTS, MESH_DP = 8, 2
+# gmer_counter's count phase: text database nodes (2 K-mers each), reads
+GMER_NODES = 2_000_000
+GMER_READ_BP, GMER_DEPTH, GMER_SUB = 150, 2, 0.002
 # H100 SXM: HBM bytes/s, and int32 ops/s outside the tensor cores (132 SMs
 # x 64 int32 lanes x 1.98 GHz boost)
 PEAK_BYTES, PEAK_INT_OPS = 3.35e12, 16.7e12
@@ -503,6 +525,199 @@ def phase_mesh(torch, fa: str, tmp: str, single: str, single_wall: float):
     return runs["bitonic"]
 
 
+def _digits(n: int, width: int) -> np.ndarray:
+    """ASCII decimal 0..n-1, zero padded to ``width``: uint8[n, width]."""
+    i = np.arange(n)
+    return np.stack([48 + (i // 10 ** (width - 1 - j)) % 10
+                     for j in range(width)], axis=1).astype(np.uint8)
+
+
+def write_gmer_db(path: str, bases: np.ndarray, seed: int) -> None:
+    """db.txt: GMER_NODES lines ``nNNNNNNN 2 REF ALT`` (tab separated), REF
+    the K-mer of ``bases`` at a random position and ALT that word with its
+    middle base changed."""
+    rng = np.random.default_rng(seed)
+    lut = np.zeros(256, np.int64)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    n = GMER_NODES
+    ref = bases[rng.integers(0, len(bases) - K + 1, n)[:, None]
+                + np.arange(K)]
+    alt = ref.copy()
+    alt[:, K // 2] = np.frombuffer(b"ACGT", np.uint8)[
+        (lut[ref[:, K // 2]] + rng.integers(1, 4, n)) % 4]
+    tab, nl = np.full((n, 1), 9, np.uint8), np.full((n, 1), 10, np.uint8)
+    lines = np.concatenate([np.full((n, 1), ord("n"), np.uint8),
+                            _digits(n, 7), tab, np.full((n, 1), ord("2"),
+                                                        np.uint8),
+                            tab, ref, tab, alt, nl], axis=1)
+    lines.tofile(os.path.join(path, "db.txt"))
+
+
+def write_gmer_reads(path: str, bases: np.ndarray, seed: int) -> int:
+    """reads.fq: GMER_READ_BP bp reads drawn from ``bases`` at GMER_DEPTH,
+    GMER_SUB of their bases changed to another base, half reverse
+    complemented. Returns the number of reads."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    lut = np.zeros(256, np.int64)
+    lut[alphabet] = np.arange(4)
+    comp = np.zeros(256, np.uint8)
+    comp[alphabet] = np.frombuffer(b"TGCA", np.uint8)
+    L = GMER_READ_BP
+    n = GMER_DEPTH * len(bases) // L
+    seq = bases[rng.integers(0, len(bases) - L + 1, n)[:, None]
+                + np.arange(L)]
+    flat = seq.reshape(-1)
+    at = rng.integers(0, flat.size, rng.binomial(flat.size, GMER_SUB))
+    flat[at] = alphabet[(lut[flat[at]] + rng.integers(1, 4, len(at))) % 4]
+    flip = rng.random(n) < 0.5
+    seq[flip] = comp[seq[flip]][:, ::-1]
+
+    def col(text: bytes):
+        return np.tile(np.frombuffer(text, np.uint8), (n, 1))
+
+    recs = np.concatenate([col(b"@r"), _digits(n, 7), col(b"\n"), seq,
+                           col(b"\n+\n"), col(b"I" * L), col(b"\n")],
+                          axis=1)
+    recs.tofile(os.path.join(path, "reads.fq"))
+    return n
+
+
+def gmer_count_steps(torch, path: str) -> None:
+    """The card route's stages, each to a synchronize, and one 2^25-base
+    chunk's count step in both join directions (equal counts required)."""
+    from genometester4_tpu_torch.formats.gmerdb import load_text_db
+    from genometester4_tpu_torch.io.fasta import iter_code_slabs
+    from genometester4_tpu_torch.ops.kmers import extract_kmers_best
+    from genometester4_tpu_torch.ops.lookup import batched_bounds
+    from genometester4_tpu_torch.pipelines.gmercount import (
+        DBCounter, count_step, format_counts)
+
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return value
+
+    reads = os.path.join(path, "reads.fq")
+    db = stage("parse the text database", lambda: load_text_db(
+        os.path.join(path, "db.txt")))
+    counter = stage("set-up (decode, sorted table to the card)",
+                    lambda: DBCounter(db, device="cuda"))
+    stage("reads (host parse, upload, the chunks on the card)",
+          lambda: counter.add_file(reads))
+    stage("finalize (the accumulator back)", counter.finalize)
+    stage("format the counts", lambda: format_counts(
+        db, counter.result.clamped(db.count_bits), False, False, True, 0,
+        False, io.StringIO()))
+    log("gmercount card route stages: " + "; ".join(
+        f"{name} {t:.3f} s" for name, t in stages.items()))
+    prof = cProfile.Profile()
+    prof.runcall(load_text_db, os.path.join(path, "db.txt"))
+    top = io.StringIO()
+    pstats.Stats(prof, stream=top).sort_stats("tottime").print_stats(6)
+    for line in top.getvalue().splitlines():
+        if line.strip() and line.lstrip()[0].isdigit():
+            log(f"  text database parse, cProfile by own time: "
+                f"{' '.join(line.split())}")
+
+    codes_np, _ = next(iter_code_slabs(reads, K))
+    codes = torch.from_numpy(codes_np[:N_KERNEL].copy()).cuda()
+    db_keys = counter._db_keys
+    n = db_keys.numel()
+    acc = torch.zeros(n, dtype=torch.int64, device="cuda")
+    count_step(codes, K, db_keys, acc, False)
+    hits = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    ones = torch.ones(codes.numel(), dtype=torch.int64, device="cuda")
+
+    def windows_search_db():
+        keys, _ = extract_kmers_best(codes, K)
+        at = torch.searchsorted(db_keys, keys).clamp_(max=n - 1)
+        hit = db_keys[at] == keys   # invalid keys carry the flag bit
+        hits.index_add_(0, torch.where(hit, at, n), ones)
+
+    windows_search_db()
+    torch.cuda.synchronize()
+    check(torch.equal(hits[:n], acc), "the two join directions disagree")
+    keys, _ = extract_kmers_best(codes, K)
+    skeys = torch.sort(keys).values
+    ms = {
+        "DB searches the sorted chunk (JAX's direction, the port's)":
+            median_ms(torch, lambda: count_step(codes, K, db_keys, acc,
+                                                False), 10),
+        "  of which kernel A": median_ms(
+            torch, lambda: extract_kmers_best(codes, K), 10),
+        "  of which torch.sort": median_ms(
+            torch, lambda: torch.sort(keys), 10),
+        "  of which the two searches": median_ms(
+            torch, lambda: batched_bounds(skeys, db_keys), 10),
+        "windows search the DB (index_add_ of the hits)":
+            median_ms(torch, windows_search_db, 10)}
+    log(f"gmercount count step, one chunk of 2^25 codes, {n} DB words, "
+        f"equal counts in both join directions: " + "; ".join(
+            f"{name} {t:.4f} ms" for name, t in ms.items()))
+
+
+def phase_gmercount(torch, path: str, bases: np.ndarray, seed: int) -> int:
+    """gmer_counter's count mode through the port's CLI: the card route
+    and the port's host route in turns, each against the JAX package's
+    host route in a subprocess. Returns kernel A's launches in the first
+    card run."""
+    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
+
+    t0 = time.perf_counter()
+    write_gmer_db(path, bases, seed)
+    n_reads = write_gmer_reads(path, bases, seed)
+    windows = n_reads * (GMER_READ_BP - K + 1)
+    log(f"gmercount input: text database of {GMER_NODES} nodes x 2 "
+        f"{K}-mers, {n_reads} FASTQ reads of {GMER_READ_BP} bp "
+        f"({n_reads * GMER_READ_BP} bp, {windows} windows; seed {seed}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    args = ["-db", "db.txt", "reads.fq"]
+    want, ref_wall = reference_cli(path, "gmer_counter", args,
+                                   GT4_TPU_COUNT_IMPL="host")
+    check(want.returncode == 0, f"JAX host-route gmer_counter failed: "
+                                f"{want.stderr.decode(errors='replace')}")
+    lines = want.stdout.count(b"\n")
+    log(f"gmercount reference: JAX package host route in a subprocess, "
+        f"main() wall {ref_wall:.3f} s ({windows / ref_wall / 1e6:.2f} M "
+        f"windows/s), {lines} stdout lines")
+    walls = {"card": [], "host": []}
+    launches = None
+    for route in ("card", "host", "host", "card"):
+        extract_kmers_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rc, out, err, wall = _port_gmer_counter(torch, path, args,
+                                                route == "card")
+        n_launch = extract_kmers_cuda.launches
+        if launches is None:   # the main path's run
+            launches = n_launch
+        walls[route].append(wall)
+        log(f"gmercount port {route} route: main() wall {wall:.3f} s "
+            f"({windows / wall / 1e6:.2f} M windows/s), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, kernel A "
+            f"launches {n_launch}")
+        check(rc == 0, f"port gmer_counter ({route} route) exited {rc}")
+        check(out == want.stdout, f"port gmer_counter ({route} route) "
+                                  f"stdout differs from the reference")
+        check(err == want.stderr, f"port gmer_counter ({route} route) "
+                                  f"stderr differs: {err[-500:]!r}")
+        check((n_launch > 0) == (route == "card"),
+              f"{route} route launched kernel A {n_launch} times")
+    log(f"gmercount: stdout ({len(want.stdout)} bytes) of all four port runs "
+        f"byte-identical to the JAX host route; in this process, in turns: "
+        f"card route {walls['card'][0]:.3f} and {walls['card'][1]:.3f} s, "
+        f"the port's host route {walls['host'][0]:.3f} and "
+        f"{walls['host'][1]:.3f} s; kernel A launches on the gmercount path "
+        f"{launches}")
+    gmer_count_steps(torch, path)
+    return launches
+
+
 def reference_cli(path: str, module: str, args: list, **env):
     """A CLI of the JAX package on its host route in a subprocess in
     ``path`` (``JAX_PLATFORMS=cpu``: its host routes import no jax): the
@@ -530,27 +745,88 @@ def reference_cli(path: str, module: str, args: list, **env):
     return r, wall
 
 
-def _port_gassembler(torch, path: str, args: list, device_route: bool):
-    """The port's gassembler CLI in this process on CUDA, in ``path``, on
-    its device route (kernel C) or its host route (GT4_TPU_DEVICE_SW=0, the
-    native C fill); returns (rc, stdout bytes, stderr bytes, wall s to a
+def _port_main(torch, main, path: str, args: list, env: str, value):
+    """A CLI ``main`` of the port in this process on CUDA, in ``path``,
+    with the environment variable ``env`` set to ``value`` (unset for
+    None); returns (rc, stdout bytes, stderr bytes, wall s to a
     synchronize)."""
-    from genometester4_tpu_torch.cli.gassembler import main as gassembler
     out, err = io.StringIO(), io.StringIO()
     old = os.getcwd()
     os.chdir(path)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with environ("GT4_TPU_DEVICE_SW", None if device_route else "0"), \
-                contextlib.redirect_stdout(out), \
+        with environ(env, value), contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(err):
-            rc = gassembler(args, device="cuda")
+            rc = main(args, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         os.chdir(old)
     return rc, out.getvalue().encode(), err.getvalue().encode(), wall
+
+
+def _port_gassembler(torch, path: str, args: list, device_route: bool):
+    """The port's gassembler CLI on its device route (kernel C) or its host
+    route (GT4_TPU_DEVICE_SW=0, the native C fill)."""
+    from genometester4_tpu_torch.cli.gassembler import main as gassembler
+    return _port_main(torch, gassembler, path, args, "GT4_TPU_DEVICE_SW",
+                      None if device_route else "0")
+
+
+def _port_gmer_counter(torch, path: str, args: list, card_route: bool):
+    """The port's gmer_counter CLI on its card route (kernel A) or its
+    native host route (GT4_TPU_COUNT_IMPL=host)."""
+    from genometester4_tpu_torch.cli.gmer_counter import main as counter
+    return _port_main(torch, counter, path, args, "GT4_TPU_COUNT_IMPL",
+                      None if card_route else "host")
+
+
+def same_file(a: str, b: str, block: int = 1 << 26) -> bool:
+    """Byte equality of two files (a read index is 2 GiB), block by
+    block."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(block)
+            if x != fb.read(block):
+                return False
+            if not x:
+                return True
+
+
+def build_read_index(torch, path: str) -> str:
+    """``db.idx`` in ``path`` from the port's gmer_counter --compile_index
+    on CUDA (kernel A must launch), held byte for byte against the JAX
+    package's host route building ``ref.idx`` in a subprocess; ref.idx is
+    deleted after. Returns a log line."""
+    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
+    from genometester4_tpu_torch.tools import katk_fixture as kf
+
+    extract_kmers_cuda.launches = 0
+    rc, out, err, wall = _port_gmer_counter(torch, path, kf.INDEX_ARGS, True)
+    launches = extract_kmers_cuda.launches
+    check(rc == 0, f"port gmer_counter --compile_index exited {rc}: "
+                   f"{err.decode(errors='replace')[-2000:]}")
+    check(launches > 0, "port gmer_counter --compile_index never launched "
+                        "kernel A")
+    ref_args = ["ref.idx" if a == "db.idx" else a for a in kf.INDEX_ARGS]
+    r, ref_wall = reference_cli(path, "gmer_counter", ref_args,
+                                GT4_TPU_COUNT_IMPL="host")
+    check(r.returncode == 0, f"JAX gmer_counter --compile_index failed: "
+                             f"{r.stderr.decode(errors='replace')[-2000:]}")
+    check((out, err) == (r.stdout, r.stderr),
+          "port gmer_counter --compile_index output differs from JAX's")
+    ref = os.path.join(path, "ref.idx")
+    same = same_file(os.path.join(path, "db.idx"), ref)
+    size = os.path.getsize(ref)
+    os.remove(ref)
+    check(same, "the port's read index differs from the JAX host route's")
+    return (f"read index by the port's gmer_counter --compile_index on CUDA "
+            f"in {wall:.3f} s (kernel A launches {launches}; JAX host route "
+            f"{ref_wall:.3f} s), {size} bytes identical to the JAX host "
+            f"route's")
 
 
 def phase_katk(torch, path: str, seed: int):
@@ -561,19 +837,14 @@ def phase_katk(torch, path: str, seed: int):
     from genometester4_tpu_torch.pipelines import gassemble as port_gas
     from genometester4_tpu_torch.tools import katk_fixture as kf
 
-    t0 = time.perf_counter()
     inputs = kf.write_katk_fixture(path, seed)
-    r, _ = reference_cli(path, "gmer_counter", kf.INDEX_ARGS,
-                         GT4_TPU_COUNT_IMPL="host")
-    check(r.returncode == 0, f"gmer_counter --compile_index failed: "
-                             f"{r.stderr.decode(errors='replace')[-2000:]}")
     with open(os.path.join(path, "regions.txt")) as f:
         n_regions = sum(1 for _ in f)
     n_reads = sum(len(reads) for _, reads in inputs)
     log(f"katk input: {n_regions} regions ({kf.REGIONS} of "
         f"{kf.REGION_BP} bp + 1 oversized), {n_reads} reads of "
-        f"{kf.READ_BP} bp (seed {seed}), read index built in "
-        f"{time.perf_counter() - t0:.2f} s (set-up)")
+        f"{kf.READ_BP} bp (seed {seed}); "
+        f"{build_read_index(torch, path)}")
 
     # warm-up of the reference: its native library build, page cache
     reference_cli(path, "gassembler", kf.ARGS + ["--max_regions", "8"],
@@ -655,12 +926,9 @@ def phase_longread(torch, path: str, seed: int) -> int:
     from genometester4_tpu_torch.ops.swalign_cuda import sw_fill_lanes_cuda
     from genometester4_tpu_torch.tools import katk_fixture as kf
 
-    t0 = time.perf_counter()
     n_reads = kf.write_long_read_fixture(path, seed)
-    r, _ = reference_cli(path, "gmer_counter", kf.INDEX_ARGS,
-                         GT4_TPU_COUNT_IMPL="host")
-    check(r.returncode == 0, f"gmer_counter --compile_index failed: "
-                             f"{r.stderr.decode(errors='replace')[-2000:]}")
+    log(f"longread: {build_read_index(torch, path)}")
+    t0 = time.perf_counter()
     want, ref_wall = reference_cli(path, "gassembler", kf.LONG_ARGS,
                                    GT4_TPU_DEVICE_SW="0")
     check(want.returncode == 0, f"JAX host-route gassembler failed: "
@@ -669,7 +937,7 @@ def phase_longread(torch, path: str, seed: int) -> int:
     check(cut > 0, "no read was cut at --max_read_length")
     log(f"longread input: {kf.LONG_REGIONS} regions, {n_reads} reads of "
         f"{kf.LONG_READ_BP[0]}-{kf.LONG_READ_BP[1]} bp (seed {seed}), "
-        f"{cut} cut at --max_read_length 1600; set-up and JAX host route "
+        f"{cut} cut at --max_read_length 1600; JAX host route "
         f"{time.perf_counter() - t0:.2f} s (its main() {ref_wall:.3f} s)")
     sw_fill_lanes_cuda.launches = 0
     rc, out, err, wall = _port_gassembler(torch, path, kf.LONG_ARGS, True)
@@ -893,6 +1161,9 @@ def run(args) -> None:
         # 3b. mesh: the mesh counting route in both merge modes
         mesh_launches = phase_mesh(torch, fa, tmp, out, wall)
         launches["merge_runs"] = mesh_launches["merge_runs"]
+
+        # 4a. gmercount: gmer_counter's count mode on the same genome
+        phase_gmercount(torch, tmp, bases, args.seed)
         del bases
 
     with tempfile.TemporaryDirectory(prefix="gt4_chip_smoke_katk_") as tmp:

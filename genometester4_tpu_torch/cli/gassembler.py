@@ -585,7 +585,7 @@ def main(argv=None, device=None) -> int:
         sys.stderr.write(mf)
         sys.stderr.write("cannot mmap (no such file?)\n")
         return 1
-    db = load_binary_db(db_name)
+    db = load_binary_db(db_name, lazy=True)
     if db is None:
         sys.stderr.write("cannot read (wrong file format?)\n")
         return 1

@@ -1,5 +1,5 @@
-"""KATK read index — per-DB-k-mer lists of read locations: the reader (the
-port's copy of ``genometester4_tpu/formats/read_index.py``).
+"""KATK read index — per-DB-k-mer lists of read locations: the reader and
+the writer (the port's copy of ``genometester4_tpu/formats/read_index.py``).
 
 Layout (reference: src/index.h:34-49, reader src/index.c:40-89):
 
@@ -98,3 +98,52 @@ def parse_read_index(data: bytes, start: int, n_kmers: int,
         reads = np.zeros(n_reads, np.uint64)
     return ReadIndex(nbits_file, nbits_npos, nbits_kmer, files,
                      read_blocks, reads, version)
+
+
+def pack_read_index(nbits_file: int, nbits_npos: int, nbits_kmer: int,
+                    files: list, read_blocks: np.ndarray,
+                    reads: np.ndarray) -> tuple[bytes, int, int]:
+    """Serialize byte-identically to gt4_index_write_with_reads_callback
+    (src/index.c:101-166).
+
+    Returns ``(blob, physical_len, buggy_blocksize)``:
+
+    * the reference's trailing alignment pad is a seek hole never
+      materialized on disk when the index is the file's last block, so
+      ``physical_len`` ends at the last actual write;
+    * ``buggy_blocksize`` is what gmer_counter --compile_index records
+      as the index blocksize: its write_reads callback returns the READ
+      COUNT where bytes are expected (src/gmer_counter.c:482-521 vs
+      src/index.c:155), so the stored blocksize is
+      pad16(reads_start + n_reads) instead of the real size.
+    """
+    out = bytearray()
+    out += struct.pack("<I", (ord("G") << 24) | (ord("T") << 16)
+                       | (ord("4") << 8) | ord("I"))
+    out += struct.pack("<III", 0, 4, 0)
+    out += struct.pack("<III", nbits_file, nbits_npos, nbits_kmer)
+    out += struct.pack("<IQQ", len(files), len(read_blocks), len(reads))
+    starts_at = len(out)
+    out += b"\0" * 24
+    files_start = len(out)
+    for fn in files:
+        out += fn + b"\0"
+    physical = len(out)
+    while len(out) & 15:
+        out += b"\0"
+    blocks_start = len(out)
+    if len(read_blocks):
+        out += np.ascontiguousarray(read_blocks, np.uint64).tobytes()
+        physical = len(out)
+    while len(out) & 15:
+        out += b"\0"
+    reads_start = len(out)
+    if len(reads):
+        out += np.ascontiguousarray(reads, np.uint64).tobytes()
+        physical = len(out)
+    while len(out) & 15:
+        out += b"\0"
+    struct.pack_into("<QQQ", out, starts_at, files_start, blocks_start,
+                     reads_start)
+    buggy_blocksize = (reads_start + len(reads) + 15) & ~15
+    return bytes(out), max(physical, starts_at + 24), buggy_blocksize

@@ -1,5 +1,6 @@
-"""FASTA/FASTQ ingestion: the streaming slab parser (the port's copy of
-``iter_code_slabs`` and what it calls, ``genometester4_tpu/io/fasta.py``).
+"""FASTA/FASTQ ingestion: the streaming slab parsers (the port's copy of
+``iter_code_slabs``, ``iter_slabs_indexed`` and what they call,
+``genometester4_tpu/io/fasta.py``).
 
 Replaces the reference's byte-at-a-time state machine parser
 (src/fasta.c:127-288) with a fully vectorized numpy parse: the whole
@@ -436,3 +437,236 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
                     rec_starts=parsed.rec_starts,
                     name_pos=(parsed._name_spans[:, 0].astype(np.int64)
                               + abs_off))
+
+
+# ---------------------------------------------------------------------------
+# Indexed slab streaming: O(slab) ingestion that ALSO tracks per-record
+# identity and character positions — what gmer_counter --compile_index
+# needs for FASTA input (role of the reference's block registry,
+# src/sequence-block.c:148-206 + src/glistmaker.c:1030-1068). Each slab
+# comes with a piecewise "segment" map: segment s covers code offsets
+# [seg_starts[s], seg_starts[s+1]) and belongs to global record
+# seg_rec[s], whose record-character offset at the segment start is
+# seg_lpos0[s]. A window starting at code offset p therefore lies in
+# record seg_rec[j], j = searchsorted(seg_starts, p, 'right')-1, at local
+# position p - seg_starts[j] + seg_lpos0[j]. Sentinel (255) separator
+# slots fall inside the preceding segment; windows there are invalid
+# so their mapping is never read.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class IdxSlabMeta:
+    seg_starts: np.ndarray    # int64[S]
+    seg_rec: np.ndarray       # int64[S] global record index
+    seg_lpos0: np.ndarray     # int64[S]
+    name_spans: np.ndarray    # int64[n_started, 2] absolute byte offsets
+    rec_base: int             # global index of first record started here
+    n_started: int
+    total_bases: int
+    count_n: int
+    prefix_len: int
+    rec_lengths: np.ndarray | None = None  # FASTQ: chars per started rec
+
+
+@dataclass
+class IdxStreamEnd:
+    stream_size: int          # total (decompressed) byte length
+    n_records: int
+
+
+def _fasta_slab_meta(data: np.ndarray, continuing: bool):
+    """Per-slab record metadata matching _parse_fasta_slab's code
+    layout: (n_headers, name_spans_rel[n,2], rec_lengths[slots])."""
+    starts, ends = _line_index(data)
+    if len(starts) == 0:
+        return (0, np.zeros((0, 2), np.int64),
+                np.zeros(1 if continuing else 0, np.int64))
+    raw_ends = ends  # see parse_fastq: names keep '\r' (src/fasta.c:145-174)
+    ends = _strip_cr(data, ends)
+    is_header = data[starts] == _GT
+    n_headers = int(is_header.sum())
+    rec_of_line = np.cumsum(is_header) - 1
+    if continuing:
+        rec_of_line = rec_of_line + 1
+    n_recs = n_headers + (1 if continuing else 0)
+    seq_mask = (~is_header) & (rec_of_line >= 0)
+    rec_lengths = np.zeros(max(n_recs, 1), np.int64)[:n_recs]
+    np.add.at(rec_lengths, rec_of_line[seq_mask],
+              (ends - starts)[seq_mask])
+    hs = starts[is_header]
+    he = raw_ends[is_header]
+    name_spans = np.stack([hs + 1, he], axis=1).astype(np.int64)
+    return n_headers, name_spans, rec_lengths
+
+
+def _fastq_idx_meta(parsed: ParsedSequences, next_rec: int,
+                    abs_off: int) -> IdxSlabMeta:
+    return IdxSlabMeta(
+        seg_starts=parsed.rec_starts.astype(np.int64),
+        seg_rec=np.arange(next_rec, next_rec + parsed.n_records,
+                          dtype=np.int64),
+        seg_lpos0=np.zeros(parsed.n_records, np.int64),
+        name_spans=(parsed._name_spans.astype(np.int64) + abs_off),
+        rec_base=next_rec, n_started=parsed.n_records,
+        total_bases=parsed.total_bases, count_n=parsed.count_n,
+        prefix_len=0, rec_lengths=parsed._seq_raw_lengths.copy())
+
+
+def iter_slabs_indexed(path: str, k: int, slab_bytes: int = 1 << 28):
+    """Stream FASTA/FASTQ as code slabs with record/position maps.
+
+    Yields (codes, IdxSlabMeta) per slab and finally (None,
+    IdxStreamEnd). Concatenating the slabs minus their prefixes
+    reproduces the whole-file parse's codes exactly (same guarantee as
+    iter_code_slabs; the k-1 overlap carry means no window is lost or
+    double-counted at seams)."""
+    fmt = None
+    carry = b""
+    tail_codes = np.empty(0, np.uint8)
+    tail_segs = (np.zeros(1, np.int64), np.full(1, -1, np.int64),
+                 np.zeros(1, np.int64))
+    open_record = False
+    cur_rec = -1
+    cur_lpos = 0
+    next_rec = 0
+    abs_off = 0
+    stream_bytes = 0
+
+    def build_fasta_slab(head: bytes):
+        nonlocal tail_codes, tail_segs, open_record, cur_rec, cur_lpos, \
+            next_rec
+        data = np.frombuffer(head, np.uint8)
+        codes_new, n_headers, count_n, bases, _ = _parse_fasta_slab(
+            head, open_record)
+        nh2, name_spans_rel, rec_lengths = _fasta_slab_meta(
+            data, open_record)
+        if nh2 != n_headers:
+            raise ValueError("FASTA slab parsers disagree on the number of "
+                             f"records ({n_headers} vs {nh2})")
+        starts_fresh = head[:1] == b">"
+        prefix = tail_codes
+        sep = open_record and starts_fresh and len(tail_codes)
+        if sep:
+            prefix = np.concatenate([tail_codes,
+                                     np.full(1, 255, np.uint8)])
+        codes = np.concatenate([prefix, codes_new])
+        plen = len(prefix)
+        # body segments from the parser's [cont][255][rec0][255]... layout
+        seg_s = list(tail_segs[0])
+        seg_r = list(tail_segs[1])
+        seg_l = list(tail_segs[2])
+        off = plen
+        slot = 0
+        if open_record and not sep:
+            ln = int(rec_lengths[slot]) if len(rec_lengths) else 0
+            seg_s.append(off)
+            seg_r.append(cur_rec)
+            seg_l.append(cur_lpos)
+            off += ln
+            slot = 1
+        elif open_record and sep:
+            # carried record closed at the seam: its zero-length slot
+            # still occupies a sentinel in the parser layout
+            ln = int(rec_lengths[0]) if len(rec_lengths) else 0
+            off += ln          # always 0 chars (record had ended)
+            slot = 1
+        for j in range(n_headers):
+            if slot + j > 0 or (open_record and not sep):
+                off += 1       # sentinel before this record
+            elif not open_record and j > 0:
+                off += 1
+            seg_s.append(off)
+            seg_r.append(next_rec + j)
+            seg_l.append(0)
+            off += int(rec_lengths[slot + j]) if slot + j < len(
+                rec_lengths) else 0
+        meta = IdxSlabMeta(
+            seg_starts=np.array(seg_s, np.int64),
+            seg_rec=np.array(seg_r, np.int64),
+            seg_lpos0=np.array(seg_l, np.int64),
+            name_spans=(name_spans_rel + abs_off),
+            rec_base=next_rec, n_started=n_headers,
+            total_bases=bases, count_n=count_n, prefix_len=plen)
+        # state updates
+        if n_headers:
+            cur_rec = next_rec + n_headers - 1
+            cur_lpos = int(rec_lengths[-1])
+        else:
+            cur_lpos += bases
+        next_rec += n_headers
+        open_record = open_record or n_headers > 0
+        # carry tail mapping for the next slab
+        t = min(k - 1, len(codes)) if k > 1 else 0
+        q0 = len(codes) - t
+        tail_codes = codes[q0:]
+        ss, sr, sl = meta.seg_starts, meta.seg_rec, meta.seg_lpos0
+        keep = []
+        for s in range(len(ss)):
+            seg_end = ss[s + 1] if s + 1 < len(ss) else len(codes)
+            if seg_end > q0:
+                new_start = max(0, int(ss[s]) - q0)
+                new_l = int(sl[s]) + max(0, q0 - int(ss[s]))
+                keep.append((new_start, int(sr[s]), new_l))
+        if not keep:
+            keep = [(0, cur_rec, cur_lpos)]
+        tail_segs = (np.array([x[0] for x in keep], np.int64),
+                     np.array([x[1] for x in keep], np.int64),
+                     np.array([x[2] for x in keep], np.int64))
+        return codes, meta
+
+    for raw in _iter_raw_slabs(path, slab_bytes):
+        stream_bytes += len(raw)
+        buf = carry + raw
+        if fmt is None:
+            i = 0
+            while i < len(buf) and buf[i] in (_NL, _CR, ord(" "), ord("\t")):
+                i += 1
+            if i >= len(buf):
+                carry = b""
+                abs_off += len(buf)
+                continue
+            buf = buf[i:]
+            abs_off += i
+            if buf[0] == _GT:
+                fmt = "fasta"
+            elif buf[0] == _AT:
+                fmt = "fastq"
+            else:
+                raise ValueError(
+                    f"unrecognized sequence format (first byte {buf[0]!r})")
+        if fmt == "fasta":
+            cut = buf.rfind(b"\n") + 1
+            if cut == 0:
+                raise ValueError(
+                    "iter_slabs_indexed: line longer than a slab")
+            head, carry = buf[:cut], buf[cut:]
+            codes, meta = build_fasta_slab(head)
+            abs_off += len(head)
+            yield codes, meta
+        else:
+            nl = np.flatnonzero(np.frombuffer(buf, np.uint8) == _NL)
+            n_groups = len(nl) // 4
+            if n_groups == 0:
+                carry = buf
+                continue
+            cut = int(nl[4 * n_groups - 1]) + 1
+            head, carry = buf[:cut], buf[cut:]
+            parsed = parse_fastq(head)
+            meta = _fastq_idx_meta(parsed, next_rec, abs_off)
+            next_rec += parsed.n_records
+            abs_off += len(head)
+            yield parsed.codes, meta
+    if carry.strip():
+        if fmt == "fasta":
+            if not carry.endswith(b"\n"):
+                carry += b"\n"
+            codes, meta = build_fasta_slab(carry)
+            yield codes, meta
+        elif fmt == "fastq":
+            if carry.count(b"\n") >= 3:
+                parsed = parse_fastq(carry)
+                meta = _fastq_idx_meta(parsed, next_rec, abs_off)
+                next_rec += parsed.n_records
+                yield parsed.codes, meta
+    yield None, IdxStreamEnd(stream_size=stream_bytes, n_records=next_rec)

@@ -7,8 +7,10 @@ sort is ``torch.sort`` on int64 keys (``ops.encode``) and the marks come
 from kernel B (``ops.runmarks_cuda``) on a CUDA tensor, or from its plain
 version ``run_marks`` below on a CPU tensor.
 
-``compact=True``, ``sort_compact`` and ``filter_counts`` are not ported
-yet: the port's pipelines compact on the device with boolean indexing.
+``sort_compact`` (gmer_counter's index mode) is an order-preserving
+``torch.nonzero`` compaction. ``compact=True`` and ``filter_counts`` are
+not ported yet: the port's pipelines compact on the device with boolean
+indexing.
 """
 
 from __future__ import annotations
@@ -18,6 +20,17 @@ import torch
 from genometester4_tpu_torch.ops.encode import SIGN, flag_key
 
 _U32 = 0xFFFFFFFF
+
+
+def sort_compact(mask: torch.Tensor, *arrays: torch.Tensor):
+    """Stream compaction: the entries where ``mask`` is set, in order.
+
+    Returns (n_kept, each array's kept entries): the first ``n_kept``
+    slots of JAX's ``sort_compact`` (a sort keyed on (not kept, position),
+    scatter-free for the TPU), without its tail of non-kept entries. The
+    count is read back to the host (one synchronization)."""
+    idx = torch.nonzero(mask).flatten()
+    return (idx.numel(), *(a[idx] for a in arrays))
 
 
 def run_marks(keys: torch.Tensor, n_valid: int):

@@ -51,12 +51,17 @@ DEFAULT_CHUNK_BASES = 1 << 25
 DEFAULT_MERGE_BUCKET = 1 << 25
 
 
+def pow2_cap(n: int, cap_limit: int) -> int:
+    """The padded length of an ``n``-byte chunk: the next power of two, at
+    least 1024, at most ``cap_limit``."""
+    return min(1 << max(10, math.ceil(math.log2(max(n, 2)))), cap_limit)
+
+
 def pad_pow2_chunk(chunk: np.ndarray, cap_limit: int) -> np.ndarray:
-    """Pad a chunk with invalid bytes up to the next power of two (at
-    least 1024, at most ``cap_limit``), so that the CUDA caching allocator
-    sees a handful of sizes instead of one per input length."""
-    cap = 1 << max(10, math.ceil(math.log2(max(len(chunk), 2))))
-    cap = min(cap, cap_limit)
+    """Pad a chunk with invalid bytes up to ``pow2_cap``, so that the CUDA
+    caching allocator sees a handful of sizes instead of one per input
+    length."""
+    cap = pow2_cap(len(chunk), cap_limit)
     if len(chunk) < cap:
         chunk = np.concatenate(
             [chunk, np.full(cap - len(chunk), 255, np.uint8)])

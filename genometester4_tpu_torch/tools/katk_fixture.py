@@ -7,9 +7,11 @@ runs is the one the CPU tests rehearse at a smaller size:
     inputs = write_katk_fixture(path, seed)   # reads.fq, db.txt, regions.txt
 
 Its read index (``db.idx``) comes from ``gmer_counter INDEX_ARGS`` run in
-``path``; gassembler then runs with ``ARGS``. The port has no gmer_counter:
-the callers run the JAX package's host route in a subprocess for that
-set-up, as they run its host gassembler as the oracle.
+``path``; gassembler then runs with ``ARGS``. ``chip_smoke.py`` builds it
+with the port's own gmer_counter on the card and holds its bytes against
+the JAX package's host route; the gassembler tests keep the JAX-built
+index, and ``tests/test_torch_lookup.py`` runs the chain from the port
+alone.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ The port's copy of ``genometester4_tpu/native_build.py`` and of the parts
 of ``genometester4_tpu/models/fastgt_native.py`` its host code reaches:
 the FASTA/FASTQ slab parsers (``io.fasta``), the SW fill and traceback
 (``ops.swalign``), gassembler's fused host alignment, gapped alignment,
-grouping and calling (``pipelines.gassemble``), and the glibc ``rand()``
+grouping and calling (``pipelines.gassemble``), gmer_counter's text
+database parser, count formatter and host counting route
+(``formats.gmerdb``, ``pipelines.gmercount``), and the glibc ``rand()``
 stream (``srand``, ``rand_skip``). It is host code, not a GPU kernel.
 
 The library is built with ``cc`` at first use, with the JAX package's
@@ -98,6 +100,7 @@ def get_lib() -> ctypes.CDLL:
         i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
         u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
         f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         lib.fgx_srand.argtypes = [ctypes.c_uint]
@@ -170,6 +173,30 @@ def get_lib() -> ctypes.CDLL:
         lib.fgx_parse_fastq_slab.restype = ctypes.c_long
         lib.fgx_parse_fastq_slab.argtypes = [
             u8p, ctypes.c_long, u8p, lp, i64p, i64p, lp, lp]
+        # gmer_counter: the text database parser and the count formatter
+        lib.fgx_parse_text_db.restype = ctypes.c_long
+        lib.fgx_parse_text_db.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_long, i64p, i64p, i64p, u64p,
+            lp, ctypes.POINTER(ctypes.c_int)]
+        lib.fgx_format_node_counts.restype = ctypes.c_long
+        lib.fgx_format_node_counts.argtypes = [
+            u8p, llp, ctypes.POINTER(ctypes.c_int), llp, llp, u64p,
+            ctypes.c_long, u8p]
+        # gmer_counter's host route (GT4_TPU_COUNT_IMPL=host)
+        lib.fgx_extract_canonical.restype = ctypes.c_long
+        lib.fgx_extract_canonical.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_int, u64p]
+        lib.fgx_sort_u64.restype = ctypes.c_int
+        lib.fgx_sort_u64.argtypes = [u64p, ctypes.c_long, ctypes.c_int]
+        lib.fgx_sorted_occurrences.restype = None
+        lib.fgx_sorted_occurrences.argtypes = [
+            u64p, ctypes.c_long, u64p, ctypes.c_long, u64p]
+        lib.fgx_index_hits.restype = ctypes.c_long
+        lib.fgx_index_hits.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_int, u64p, u32p, ctypes.c_long,
+            u32p, i64p, u8p, llp]
+        lib.fgx_index_hits_batched.restype = ctypes.c_long
+        lib.fgx_index_hits_batched.argtypes = lib.fgx_index_hits.argtypes
         _lib = lib
         return lib
 

@@ -335,6 +335,75 @@ def test_gassembler_cuda_equals_cpu(cuda, tmp_path):
     assert 0 < results["cuda"][3] < 13
 
 
+def _gmer_inputs(path, k, seed):
+    """db.txt (nodes of a genome word and its alt allele, and the word 0)
+    and reads.fq (100 bp reads, a third reverse complemented, every
+    seventh with an N, a tenth over a poly-A run) in ``path``."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", np.uint8)
+    g = rng.choice(acgt, 20_000)
+    g[500:560] = ord("A")
+    lines = [f"ZERO\t1\t{'A' * k}"]
+    for i in range(50):
+        p = int(rng.integers(0, len(g) - k))
+        w = bytearray(g[p:p + k].tobytes())
+        alt = bytearray(w)
+        alt[k // 2] = b"ACGT"[(b"ACGT".index(alt[k // 2]) + 1) % 4]
+        lines.append(f"S{i}\t2\t{w.decode()}\t{alt.decode()}")
+    (path / "db.txt").write_text("\n".join(lines) + "\n")
+    recs = []
+    for r in range(400):
+        p = 480 + r % 40 if r % 10 == 0 else int(rng.integers(0, 19_900))
+        s = g[p:p + 100].copy()
+        if r % 3 == 0:
+            s = comp[s][::-1]
+        if r % 7 == 0:
+            s[int(rng.integers(0, 100))] = ord("N")
+        recs.append(b"@r%d\n%s\n+\n%s\n" % (r, s.tobytes(), b"I" * 100))
+    (path / "reads.fq").write_bytes(b"".join(recs))
+
+
+@pytest.mark.parametrize("k", [25, 32])
+def test_gmer_counter_cuda_equals_cpu(cuda, tmp_path, monkeypatch, k):
+    """gmer_counter on CUDA (kernel A, torch.sort, torch.searchsorted) and
+    on the CPU (their plain versions): the same count-mode stdout with
+    --stats, and the same --compile_index stdout and index bytes; kernel
+    A's launch counter moves on CUDA only."""
+    import contextlib
+    import filecmp
+    import io
+
+    from genometester4_tpu_torch.cli.gmer_counter import main
+
+    _gmer_inputs(tmp_path, k, seed=k)
+    monkeypatch.delenv("GT4_TPU_COUNT_IMPL", raising=False)
+    monkeypatch.chdir(tmp_path)
+    results = {}
+    try:
+        for device in ("cuda", "cpu"):
+            before = extract_kmers_cuda.launches
+            runs = []
+            for args in (["-db", "db.txt", "--stats", "--total", "reads.fq"],
+                         ["-db", "db.txt", "--compile_index", f"{device}.idx",
+                          "--verbose", "reads.fq"]):
+                out, err = io.StringIO(), io.StringIO()
+                with contextlib.redirect_stdout(out), \
+                        contextlib.redirect_stderr(err):
+                    rc = main(args, device=device)
+                runs.append((rc, out.getvalue(), err.getvalue()))
+            results[device] = (runs, extract_kmers_cuda.launches - before)
+        assert filecmp.cmp("cuda.idx", "cpu.idx", shallow=False)
+    finally:
+        for device in ("cuda", "cpu"):
+            (tmp_path / f"{device}.idx").unlink(missing_ok=True)
+    assert results["cuda"][0] == results["cpu"][0]
+    rc, out, _ = results["cuda"][0][0]
+    assert rc == 0 and int(out.split("#LIST_KMERS\t")[1].split("\n")[0]) > 0
+    assert results["cuda"][1] >= 2 and results["cpu"][1] == 0
+
+
 def _sorted_runs(cuda, seed, n, L, card, sentinel_tails=False):
     """int64 keys in [-card, card) sorted within each length-L run; with
     ``sentinel_tails`` each run ends in INT64_MAX from a random point."""

@@ -6,8 +6,8 @@
 Run from the repository root on a machine with one CUDA GPU. It builds the
 KATK fixture of ``chip_smoke.py``'s katk phase
 (``genometester4_tpu_torch/tools/katk_fixture.py``, from --seed) and its
-read index (the JAX package's gmer_counter host route, in a subprocess),
-then prints:
+read index (the port's gmer_counter ``--compile_index`` on CUDA), then
+prints:
 
 1. wall    ``main()`` wall of three routes, 3 warm runs each, in turns, in
            this one process: the JAX package's host route and the port's
@@ -42,9 +42,10 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import reference_cli  # noqa: E402
 from genometester4_tpu.cli.gassembler import main as jax_main  # noqa: E402
 from genometester4_tpu_torch.cli import gassembler as port_cli  # noqa: E402
+from genometester4_tpu_torch.cli import (  # noqa: E402
+    gmer_counter as port_counter)
 from genometester4_tpu_torch.tools import katk_fixture as kf  # noqa: E402
 
 RUNS = 3
@@ -130,13 +131,11 @@ def device_busy(prof) -> dict:
 def run(seed: int) -> None:
     with tempfile.TemporaryDirectory(prefix="gt4_profile_gasm_") as tmp:
         kf.write_katk_fixture(tmp, seed)
-        r, _ = reference_cli(tmp, "gmer_counter", kf.INDEX_ARGS,
-                             GT4_TPU_COUNT_IMPL="host")
-        if r.returncode:
-            raise SystemExit(r.stderr.decode(errors="replace"))
         old = os.getcwd()
         os.chdir(tmp)
         try:
+            if port_counter.main(kf.INDEX_ARGS, device="cuda"):
+                raise SystemExit("gmer_counter --compile_index failed")
             warm = kf.ARGS + ["--max_regions", "8"]
             for route in ROUTES.values():
                 route(warm)
