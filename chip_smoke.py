@@ -35,6 +35,20 @@ Run from the repository root. Phases, each of which must pass:
            the card route's stages, and one chunk's count step in JAX's
            join direction (the database searches the sorted chunk) and in
            the other (each window searches the database).
+4c. glist  the port's list CLIs in this process on CUDA, each output
+           against the JAX CLI's host route (GT4_TPU_COUNT_IMPL=host or
+           GT4_TPU_SETOPS_IMPL=host) in a subprocess: (a) glistmaker -w 25
+           on phase 2's FASTA (the .list must equal phase 2's; kernels A
+           and B must launch) and on phase 4a's reads; (b) glistmaker
+           --index on the FASTA, the card route and the port's host route
+           in turns (kernel A on the card route only), with the stage
+           split; (c) glistcompare -u -i -d -dd on the genome's and the
+           reads' lists, the card route (compare_pair) and the host route
+           in turns, with peak device memory; (d) glistcompare -u on both
+           lists and (b)'s .index, which reaches compare_multi on the card.
+           stdout, stderr and every file must be identical. Cut to size:
+           users compare whole genomes and 30x read sets; 50 Mbp and 2x
+           keep the phase in the smoke's limit.
 4. katk    KATK gassembler through the port's CLI on CUDA, over 1,000
            exome-style 200 bp regions (plus one oversized region between
            two regions of more than 200 reads) with 150 bp reads at 40x
@@ -65,8 +79,10 @@ Run from the repository root. Phases, each of which must pass:
            contract, tolerance 0); median times of both are printed, with
            each kernel's bound (the larger of its bytes over 3.35 TB/s and
            its integer operations over 16.7 T op/s, from this run's
-           inputs) and, for kernel E, the one PyTorch call that computes
-           the same function (a stable segmented torch.sort). Also timed:
+           inputs) and, for kernels B and E, the one PyTorch call that
+           computes the same function (B with count_chunk's compaction:
+           torch.unique_consecutive with counts, equal results required;
+           E: a stable segmented torch.sort). Also timed:
            kernel A at the mesh route's chunk (2^23), kernel E's partition
            and tile passes (torch.profiler) and one whole mesh merge round
            (merge_sorted_runs with its sortedness check and gather).
@@ -357,9 +373,41 @@ def phase_kernels(torch, seed: int) -> dict:
             f"{ms:.4f} ms   plain {pms:.4f} ms   equal bits")
         if k == K:   # keys in; head, tail masks and 3 scalars out
             res["run_marks"] = [0, ms, pms, *bound(
-                "run_marks", 10 * N_KERNEL + 12, N_KERNEL), None]
+                "run_marks", 10 * N_KERNEL + 12, N_KERNEL),
+                run_marks_library_ms(torch, keys, n_valid)]
     res["run_marks"][0] = err_b
     return res
+
+
+def run_marks_library_ms(torch, keys, n_valid: int) -> float:
+    """Kernel B and ``count_chunk``'s compaction (``listmaker.py:89-93``:
+    words at the run heads, counts from the tails' positions) against the
+    one PyTorch call that computes the same unique words and counts,
+    ``torch.unique_consecutive(return_counts=True)``, on the same sorted
+    keys: equal results required. Returns the call's ms."""
+    from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
+
+    valid = keys[:n_valid]
+
+    def kernel_b():
+        head, tail, _ = run_marks_cuda(keys, n_valid)
+        tails = torch.nonzero(tail).flatten()
+        return keys[head], torch.diff(tails + 1,
+                                      prepend=tails.new_zeros(1))
+
+    def library():
+        return torch.unique_consecutive(valid, return_counts=True)
+
+    (w1, c1), (w2, c2) = kernel_b(), library()
+    check(torch.equal(w1, w2) and torch.equal(c1, c2),
+          "kernel B + compaction != torch.unique_consecutive")
+    bms = median_ms(torch, kernel_b, 20)
+    lms = median_ms(torch, library, 20)
+    log(f"kernel run_marks k={K} n=2^25 n_valid={n_valid}: kernel B + "
+        f"count_chunk's compaction and diff {bms:.4f} ms   library "
+        f"(torch.unique_consecutive, return_counts) {lms:.4f} ms   equal "
+        f"words and counts")
+    return lms
 
 
 def merge_kernel_split(torch, keys, L):
@@ -716,6 +764,197 @@ def phase_gmercount(torch, path: str, bases: np.ndarray, seed: int) -> int:
         f"{launches}")
     gmer_count_steps(torch, path)
     return launches
+
+
+def _port_glistmaker(torch, path: str, args: list, card_route: bool):
+    """The port's glistmaker CLI on its card route or, for ``--index``,
+    its native host route (GT4_TPU_COUNT_IMPL=host)."""
+    from genometester4_tpu_torch.cli.glistmaker import main
+    return _port_main(torch, main, path, args, "GT4_TPU_COUNT_IMPL",
+                      None if card_route else "host")
+
+
+def _port_glistcompare(torch, path: str, args: list, card_route: bool):
+    """The port's glistcompare CLI on its card route or its native host
+    route (GT4_TPU_SETOPS_IMPL=host)."""
+    from genometester4_tpu_torch.cli.glistcompare import main
+    return _port_main(torch, main, path, args, "GT4_TPU_SETOPS_IMPL",
+                      None if card_route else "host")
+
+
+def _glist_reference(path: str, module: str, args: list, env: str):
+    """The JAX CLI ``module`` on its host route (``env``=host) in a
+    subprocess in ``path``; it must exit 0 (on a machine without jax this
+    shows that the host route imports none)."""
+    r, wall = reference_cli(path, module, args, **{env: "host"})
+    check(r.returncode == 0, f"JAX host-route {module} {args} failed: "
+                             f"{r.stderr.decode(errors='replace')[-2000:]}")
+    return r, wall
+
+
+def _check_same_run(what, got, want, files):
+    """A port run's (rc, stdout, stderr) equal to the reference process's,
+    and each (port file, reference file) pair byte-identical."""
+    rc, out, err = got
+    check(rc == 0, f"{what} exited {rc}: "
+                   f"{err.decode(errors='replace')[-2000:]}")
+    check(out == want.stdout, f"{what} stdout differs from the JAX host "
+                              f"route's: {out[-300:]!r}")
+    check(err == want.stderr, f"{what} stderr differs from the JAX host "
+                              f"route's: {err[-300:]!r}")
+    for mine, ref in files:
+        check(same_file(mine, ref), f"{what}: {os.path.basename(mine)} "
+                                    f"differs from the JAX host route's")
+
+
+def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
+    """The port's glistmaker and glistcompare CLIs on CUDA (4c.a-4c.d),
+    every output against the JAX CLI's host route in a subprocess. Returns
+    kernel A's and B's launches in 4c.a and A's in 4c.b's first card
+    run."""
+    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
+    from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
+    from genometester4_tpu_torch.pipelines import listcompare, listmaker
+
+    jd, pd = os.path.join(tmp, "glist_jax"), os.path.join(tmp, "glist_port")
+    os.makedirs(jd)
+    os.makedirs(pd)
+    reads = os.path.join(tmp, "reads.fq")
+    out = {}
+
+    # 4c.a: .list mode on the genome, then on the reads (4c.c's input)
+    for name, src in (("cli", fa), ("reads", reads)):
+        args = [src, "-w", str(K), "-o", name]
+        want, ref_wall = _glist_reference(jd, "glistmaker", args,
+                                          "GT4_TPU_COUNT_IMPL")
+        extract_kmers_cuda.launches = 0
+        run_marks_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rc, o, e, wall = _port_glistmaker(torch, pd, args, True)
+        la = {"extract": extract_kmers_cuda.launches,
+              "run_marks": run_marks_cuda.launches}
+        mine = os.path.join(pd, f"{name}_{K}.list")
+        ref = os.path.join(jd, f"{name}_{K}.list")
+        _check_same_run(f"port glistmaker {name}", (rc, o, e), want,
+                        [(mine, ref)])
+        check(min(la.values()) > 0, f"glistmaker {name} launches {la}")
+        if name == "cli":
+            check(same_file(mine, genome_list),
+                  "glistmaker's .list differs from phase 2's")
+            out.update(la)
+        log(f"glist 4c.a glistmaker {os.path.basename(src)} -w {K}: card "
+            f"main() wall {wall:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"{la}; JAX host route {ref_wall:.3f} s; .list "
+            f"({os.path.getsize(mine)} bytes), stdout and stderr identical "
+            f"to the JAX host route's"
+            + ("; .list identical to phase 2's" if name == "cli" else ""))
+        os.remove(ref)
+        if name == "cli":
+            os.remove(mine)
+    reads_list = os.path.join(pd, f"reads_{K}.list")
+
+    # 4c.b: --index, the card route and the port's host route in turns
+    args = [fa, "-w", str(K), "-o", "idx", "--index"]
+    want, ref_wall = _glist_reference(jd, "glistmaker", args,
+                                      "GT4_TPU_COUNT_IMPL")
+    ref_index = os.path.join(jd, f"idx_{K}.index")
+    log(f"glist 4c.b reference: JAX host route --index main() wall "
+        f"{ref_wall:.3f} s, {os.path.getsize(ref_index)} bytes")
+    make_index = listmaker.make_index
+    walls = {"card": [], "host": []}
+    try:
+        for route in ("card", "host", "host", "card"):
+            stages = {}
+
+            def timed(*a, **kw):
+                return make_index(*a, stages=stages, **kw)
+            listmaker.make_index = timed
+            extract_kmers_cuda.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            rc, o, e, wall = _port_glistmaker(torch, pd, args,
+                                              route == "card")
+            n = extract_kmers_cuda.launches
+            mine = os.path.join(pd, f"idx_{K}.index")
+            _check_same_run(f"port glistmaker --index ({route} route)",
+                            (rc, o, e), want, [(mine, ref_index)])
+            check((n > 0) == (route == "card"),
+                  f"--index {route} route launched kernel A {n} times")
+            if route == "card" and "index_extract" not in out:
+                out["index_extract"] = n
+            walls[route].append(wall)
+            log(f"glist 4c.b port --index {route} route: main() wall "
+                f"{wall:.3f} s, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                f"kernel A launches {n}; stages " + "; ".join(
+                    f"{k} {v:.3f} s" for k, v in stages.items())
+                + "; .index identical to the JAX host route's")
+            os.remove(mine)
+    finally:
+        listmaker.make_index = make_index
+    log(f"glist 4c.b: in turns, card route {walls['card'][0]:.3f} and "
+        f"{walls['card'][1]:.3f} s, the port's host route "
+        f"{walls['host'][0]:.3f} and {walls['host'][1]:.3f} s")
+
+    # 4c.c: two lists, four outputs in one run, routes in turns
+    args = [genome_list, reads_list, "-u", "-i", "-d", "-dd", "-o", "cmp"]
+    want, ref_wall = _glist_reference(jd, "glistcompare", args,
+                                      "GT4_TPU_SETOPS_IMPL")
+    names = [f"cmp_{K}_union.list", f"cmp_{K}_intrsec.list",
+             f"cmp_{K}_0_diff1.list", f"cmp_{K}_0_diff2.list"]
+    sizes = {n: os.path.getsize(os.path.join(jd, n)) // 12 for n in names}
+    log(f"glist 4c.c reference: JAX host route glistcompare -u -i -d -dd "
+        f"main() wall {ref_wall:.3f} s; records {sizes}")
+    walls = {"card": [], "host": []}
+    for route in ("card", "host", "host", "card"):
+        torch.cuda.reset_peak_memory_stats()
+        rc, o, e, wall = _port_glistcompare(torch, pd, args, route == "card")
+        _check_same_run(f"port glistcompare ({route} route)", (rc, o, e),
+                        want, [(os.path.join(pd, n), os.path.join(jd, n))
+                               for n in names])
+        walls[route].append(wall)
+        log(f"glist 4c.c port glistcompare {route} route: main() wall "
+            f"{wall:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; four "
+            f"files identical to the JAX host route's")
+        for n in names:
+            os.remove(os.path.join(pd, n))
+    for n in names:
+        os.remove(os.path.join(jd, n))
+    log(f"glist 4c.c: in turns, card route {walls['card'][0]:.3f} and "
+        f"{walls['card'][1]:.3f} s, the port's host route "
+        f"{walls['host'][0]:.3f} and {walls['host'][1]:.3f} s")
+
+    # 4c.d: three sources, one an .index: compare_multi on the card
+    args = [genome_list, reads_list, ref_index, "-u", "-o", "multi"]
+    want, ref_wall = _glist_reference(jd, "glistcompare", args,
+                                      "GT4_TPU_SETOPS_IMPL")
+    name = f"multi_{K}_union.list"
+    compare_multi = listcompare.compare_multi
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(kw.get("device"))
+        return compare_multi(*a, **kw)
+    listcompare.compare_multi = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        rc, o, e, wall = _port_glistcompare(torch, pd, args, True)
+    finally:
+        listcompare.compare_multi = compare_multi
+    _check_same_run("port glistcompare, three sources", (rc, o, e), want,
+                    [(os.path.join(pd, name), os.path.join(jd, name))])
+    check(calls == ["cuda"], f"compare_multi calls {calls}: the .index "
+                             f"input did not reach the card route")
+    log(f"glist 4c.d port glistcompare -u on two .lists and the .index: "
+        f"compare_multi on the card, main() wall {wall:.3f} s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({os.path.getsize(os.path.join(jd, name)) // 12} records); JAX "
+        f"host route {ref_wall:.3f} s; union identical")
+    for path in (os.path.join(pd, name), os.path.join(jd, name), ref_index,
+                 reads_list):
+        os.remove(path)
+    return out
 
 
 def reference_cli(path: str, module: str, args: list, **env):
@@ -1164,6 +1403,12 @@ def run(args) -> None:
 
         # 4a. gmercount: gmer_counter's count mode on the same genome
         phase_gmercount(torch, tmp, bases, args.seed)
+
+        # 4c. glist: the glistmaker and glistcompare CLIs on the genome,
+        # 4a's reads and the genome's .index
+        glist = phase_glist(torch, tmp, fa, out)
+        log(f"glist: kernel launches in 4c.a (the genome) and 4c.b (the "
+            f"first card --index run) {glist}")
         del bases
 
     with tempfile.TemporaryDirectory(prefix="gt4_chip_smoke_katk_") as tmp:

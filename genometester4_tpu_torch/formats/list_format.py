@@ -149,6 +149,31 @@ def read_list(path: str | os.PathLike, mmap: bool = True):
     return hdr, recs["word"], recs["count"]
 
 
+def raw_record_view(words: np.ndarray) -> np.ndarray | None:
+    """Recover the raw 12-byte record buffer behind a read_list(mmap)
+    word view, or None when the array is not such a view. Native
+    kernels take the raw stream directly — no strided gather copy."""
+    w = np.asarray(words)
+    if w.strides != (RECORD_SIZE,) or w.dtype.itemsize != 8:
+        return None
+    # walk to the deepest ndarray base holding the raw bytes; the view
+    # chain's shape varies across numpy versions, so the reliable check
+    # is POINTER equality: the words array's data must start exactly at
+    # the buffer's first byte and the buffer must cover every record
+    b = getattr(w, "base", None)
+    deepest = None
+    while isinstance(b, np.ndarray):
+        deepest = b
+        b = getattr(b, "base", None)
+    if deepest is None:
+        return None
+    raw = deepest.reshape(-1).view(np.uint8)
+    if (raw.ctypes.data == w.ctypes.data
+            and raw.nbytes >= RECORD_SIZE * len(w)):
+        return raw
+    return None
+
+
 def pack_records(words: np.ndarray, counts: np.ndarray) -> np.ndarray:
     """Pack parallel (u64, u32) arrays into the 12-byte record byte stream."""
     recs = np.empty(len(words), dtype=RECORD_DTYPE)

@@ -82,6 +82,12 @@ def reverse_complement_u64(words: np.ndarray, k: int) -> np.ndarray:
     return w >> np.uint64(64 - 2 * k)
 
 
+def canonical_u64(words: np.ndarray, k: int) -> np.ndarray:
+    """Host u64 min(word, reverse complement), element-wise."""
+    rc = reverse_complement_u64(words, k)
+    return np.minimum(np.asarray(words, dtype=np.uint64), rc)
+
+
 def split_u64(words: np.ndarray):
     """u64 host array -> JAX's (hi, lo) uint32 pair."""
     w = np.asarray(words, dtype=np.uint64)

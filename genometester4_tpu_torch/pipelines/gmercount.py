@@ -58,13 +58,12 @@ import numpy as np
 import torch
 
 from genometester4_tpu_torch.formats.gmerdb import GmerDB
-from genometester4_tpu_torch.ops.encode import (SIGN, canonical,
-                                                flag_key, keys_from_u64,
-                                                word_mask)
+from genometester4_tpu_torch.ops.encode import SIGN, flag_key, keys_from_u64
 from genometester4_tpu_torch.ops.kmers import extract_kmers_best
 from genometester4_tpu_torch.ops.lookup import batched_bounds, batched_lookup
 from genometester4_tpu_torch.ops.sortcount import sort_compact
-from genometester4_tpu_torch.pipelines.listmaker import pow2_cap
+from genometester4_tpu_torch.pipelines.listmaker import (forward_windows,
+                                                         pow2_cap)
 from genometester4_tpu_torch.utils.device import resolve_device
 from genometester4_tpu_torch.utils.native import get_lib
 
@@ -119,14 +118,8 @@ def index_step(codes: torch.Tensor, k: int, db_keys: torch.Tensor,
     the valid windows in stream order, as (n_hit, code [n_hit] of
     ``db_codes``' dtype, window position int64 [n_hit], is reverse
     complement bool [n_hit], n_valid device tensor)."""
-    keys, valid = extract_kmers_best(codes, k, canonical=False)
-    words = keys ^ SIGN
-    if valid is None:   # k <= 31: validity is the flag bit 2k
-        valid = words <= word_mask(k)
-        words = words & word_mask(k)
-    can = canonical(words, k)
     # dir = canonical word != forward word (src/gmer_counter.c:911)
-    is_rc = can != words
+    can, is_rc, valid = forward_windows(codes, k)
     found, code, _ = batched_lookup(db_keys, db_codes, can ^ SIGN)
     pos = torch.arange(codes.numel(), device=codes.device)
     n_hit, hcode, hpos, hdir = sort_compact(found & valid, code, pos, is_rc)

@@ -1,0 +1,832 @@
+"""glistcompare equivalent: set operations over .list and .index files
+(port of ``genometester4_tpu/pipelines/listcompare.py``).
+
+Mirrors src/glistcompare.c's behaviors (see ops/setops.py for the rule
+semantics). Routes of ``compare_pair`` and ``compare_multi``:
+
+* the device route (default), on ``device`` (None: CUDA; ``"cpu"`` runs
+  the same PyTorch ops on the CPU). Large lists are processed in
+  word-range buckets: the inputs are partitioned at identical u64
+  boundaries (host searchsorted on the sorted mmap'd arrays), each bucket
+  goes to the device as int64 keys and runs one align + ops pass
+  (``ops.setops``), and the outputs stream to ListWriters in ascending
+  order, so results are identical to a single full-size pass;
+* ``GT4_TPU_SETOPS_IMPL=host``: the native host route (a streaming C
+  zipper, bucketed over threads on large inputs, and a k-way merge),
+  as in JAX.
+
+The JAX package's placement cost model (``auto``), its mesh branches and
+its multi-process branches are not ported: with several cards the set
+operations run on one. ``compare_pair_mm`` (``-mm``) and ``make_subset``
+(``-ss``) are host code in JAX too and stay so. torch is imported only
+when a device route runs.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import sys
+
+import numpy as np
+
+from genometester4_tpu_torch.formats.list_format import (GT4_LIST_CODE,
+                                                         ListWriter,
+                                                         pack_records,
+                                                         raw_record_view,
+                                                         read_list,
+                                                         write_list)
+from genometester4_tpu_torch.utils.rand48 import Rand48
+
+
+def read_word_source(path):
+    """Load a .list OR .index as (header-like, words, counts) — the
+    reference's set operations accept either through the GT4WordSList
+    interface, with index counts being location counts
+    (src/glistcompare.c:250-286)."""
+    import struct
+    from types import SimpleNamespace
+    with open(path, "rb") as f:
+        code = struct.unpack("<I", f.read(4))[0]
+    if code == GT4_LIST_CODE:
+        return read_list(path)
+    from genometester4_tpu_torch.formats.index_format import (
+        GT4_INDEX_CODE, read_index_map)
+    if code == GT4_INDEX_CODE:
+        im = read_index_map(path)
+        counts = im.counts
+        hdr = SimpleNamespace(word_length=im.word_length,
+                              n_words=len(im.words),
+                              total_count=int(im.num_locations))
+        return hdr, im.words, counts
+    raise ValueError(
+        f"Error: {path} is not a valid GenomeTester4 list/index file")
+
+
+# CLI rule names -> the rule strings of ops.setops (RULE_*)
+RULES = {"default": "default", "add": "add", "sum": "add",
+         "subtract": "subtract", "min": "min", "max": "max",
+         "first": "first", "second": "second", "number": "number"}
+# the reference's enum Rules numbers (src/glistcompare.c:45-54), which the
+# native kernels take
+RULE_NUMBERS = {"default": 0, "add": 1, "subtract": 2, "min": 3, "max": 4,
+                "first": 5, "second": 6, "number": 7}
+
+DEFAULT_BUCKET = 1 << 25
+
+
+def _buckets(n_total, target):
+    n = 1 << max(0, math.ceil(math.log2(max(1, n_total / target))))
+    if n > 1:
+        bounds = np.arange(1, n, dtype=np.uint64) * np.uint64(2 ** 64 // n)
+    else:
+        bounds = np.empty(0, np.uint64)
+    return n, bounds
+
+
+def _bucket_slices(words, bounds, b, n_buckets):
+    a = 0 if b == 0 else np.searchsorted(words, bounds[b - 1])
+    z = len(words) if b == n_buckets - 1 else np.searchsorted(words, bounds[b])
+    return int(a), int(z)
+
+
+# multi-list ops print a progress line at every PROGRESS_TICK output
+# words when -D is on (src/glistcompare.c:586-588, src/set-operations.c:
+# 111-113); module-level so tests can lower it below 100M
+PROGRESS_TICK = 100_000_000
+
+
+def _emit_progress_ticks(prev: int, new: int) -> None:
+    """Print the reference's "Words written: NM" line for every
+    PROGRESS_TICK boundary crossed in (prev, new]."""
+    b = (prev // PROGRESS_TICK + 1) * PROGRESS_TICK
+    while b <= new:
+        sys.stderr.write("Words written: %uM\n" % (b // 1_000_000))
+        b += PROGRESS_TICK
+
+
+class _OpSink:
+    """Accumulates one op's output: either a ListWriter or count-only."""
+
+    def __init__(self, op, path, word_length, count_only, debug=0):
+        self.op = op
+        self.count_only = count_only
+        self.n_words = 0
+        self.total_count = 0
+        self.debug = debug
+        self.writer = None if count_only else ListWriter(path, word_length)
+
+    def append(self, words, counts):
+        prev = self.n_words
+        self.n_words += len(words)
+        self.total_count += int(np.asarray(counts, np.uint64).sum())
+        if self.debug:
+            _emit_progress_ticks(prev, self.n_words)
+        if self.writer:
+            self.writer.append(words, counts)
+
+    def close(self):
+        if self.writer:
+            self.writer.close()
+
+
+def _op_filename(out, wlen, op, nmm=0):
+    if op == "union":
+        return f"{out}_{wlen}_union.list"
+    if op == "intrsec":
+        return f"{out}_{wlen}_intrsec.list"
+    if op == "diff1":
+        return f"{out}_{wlen}_{nmm}_diff1.list"
+    if op == "diff2":
+        return f"{out}_{wlen}_{nmm}_diff2.list"
+    raise ValueError(op)
+
+
+def _host_route() -> bool:
+    """GT4_TPU_SETOPS_IMPL=host takes the native host route; anything else
+    the device route (JAX's ``auto`` cost model is not ported)."""
+    return os.environ.get("GT4_TPU_SETOPS_IMPL") == "host"
+
+
+def rank_bounds(word_lists, n_parts: int) -> np.ndarray:
+    """Quantile word boundaries over N sorted arrays WITHOUT re-sorting
+    (the port's copy of JAX ``parallel/sharding.rank_bounds``).
+
+    Value-space binary search on the combined rank: rank(v) =
+    sum_i searchsorted(w_i, v) is monotone in v, so the t-th quantile
+    boundary is the smallest v with rank(v) >= t*total/n_parts — found
+    in <=64 halvings, each a vectorized searchsorted per input.
+    """
+    total = sum(len(w) for w in word_lists)
+    targets = (np.arange(1, n_parts) * total) // n_parts
+    lo = np.zeros(len(targets), np.uint64)
+    hi = np.full(len(targets), np.uint64(0xFFFFFFFFFFFFFFFF))
+    for _ in range(64):
+        mid = lo + ((hi - lo) >> np.uint64(1))
+        rank = np.zeros(len(targets), np.int64)
+        for w in word_lists:
+            rank += np.searchsorted(w, mid, side="left")
+        ge = rank >= targets
+        hi = np.where(ge, mid, hi)
+        lo = np.where(ge, lo, mid + np.uint64(1))
+        if np.all(lo >= hi):
+            break
+    return hi
+
+
+# ---------------------------------------------------------------------------
+# Host (numpy) twins of the device set operations (ops/setops.py): the
+# same masks and the same u32 wraparound, for the differential tests.
+# ---------------------------------------------------------------------------
+
+
+def _host_pair_align(w1, c1, w2, c2):
+    # native C merge of the two sorted streams (numpy formulations peak
+    # at ~3x the reference's zipper cost: argsort + fancy indexing +
+    # reduceats each re-stream the data; the C merge does one pass)
+    from genometester4_tpu_torch.utils.native import get_lib
+    lib = get_lib()
+    w1 = np.ascontiguousarray(w1, np.uint64)
+    w2 = np.ascontiguousarray(w2, np.uint64)
+    c1 = np.ascontiguousarray(c1, np.uint32)
+    c2 = np.ascontiguousarray(c2, np.uint32)
+    cap = len(w1) + len(w2)
+    uw = np.empty(cap, np.uint64)
+    f1 = np.empty(cap, np.uint32)
+    f2 = np.empty(cap, np.uint32)
+    m = lib.fgx_pair_align(w1, c1, len(w1), w2, c2, len(w2), uw, f1, f2)
+    return uw[:m], f1[:m], f2[:m]
+
+
+def _host_rule_freq(f1, f2, rule, count_override):
+    if rule == "add":
+        return f1 + f2
+    if rule == "subtract":
+        return np.where(f1 > f2, f1 - f2, 0).astype(np.uint32)
+    if rule == "min":
+        return np.minimum(f1, f2)
+    if rule == "max":
+        return np.maximum(f1, f2)
+    if rule == "first":
+        return f1
+    if rule == "second":
+        return f2
+    if rule == "number":
+        return np.full_like(f1, np.uint32(count_override))
+    raise ValueError(f"invalid rule {rule}")
+
+
+def _host_apply_pair_op(uw, f1, f2, op, rule, cutoff, count_override,
+                        subtract):
+    co = np.uint32(cutoff)
+    ge1, ge2 = f1 >= co, f2 >= co
+    present1, present2 = f1 > 0, f2 > 0
+    if op == "union":
+        r = "add" if rule == "default" else rule
+        freq = _host_rule_freq(f1, f2, r, count_override)
+        inc = (ge1 | ge2) & (freq != 0)
+    elif op == "intrsec":
+        r = "min" if rule == "default" else rule
+        freq = _host_rule_freq(f1, f2, r, count_override)
+        inc = present1 & present2 & ge1 & ge2 & (freq != 0)
+    elif op == "diff1":
+        if subtract:
+            freq = f1
+            inc = present1 & present2 & (f1 == f2) & ge1
+        else:
+            r = "subtract" if rule == "default" else rule
+            freq = _host_rule_freq(f1, f2, r, count_override)
+            inc = present1 & ge1 & ~ge2 & (freq != 0)
+    elif op == "diff2":
+        r = "subtract" if rule == "default" else rule
+        freq = _host_rule_freq(f2, f1, r, count_override)
+        inc = present2 & ge2 & ~ge1 & (freq != 0)
+    else:
+        raise ValueError(f"unknown op {op}")
+    return uw[inc], freq[inc].astype(np.uint32)
+
+
+def _host_apply_multi_op(w_cat, c_cat, s_cat, n_lists, op, rule, cutoff,
+                         count_override):
+    order = np.argsort(w_cat, kind="stable")
+    sw = w_cat[order]
+    sc = c_cat[order].astype(np.uint32)
+    if len(sw) == 0:
+        return np.empty(0, np.uint64), np.empty(0, np.uint32)
+    head = np.concatenate([[True], sw[1:] != sw[:-1]])
+    starts = np.flatnonzero(head)
+    uw = sw[starts]
+    # a u32 accumulator: numpy's default one is 64-bit, so a sum past 2^32
+    # would pass the cutoff where the device route and the native merge
+    # see its wrapped value (the JAX package's twin has that fault)
+    f_add = np.add.reduceat(sc, starts, dtype=np.uint32)
+    f_min = np.minimum.reduceat(sc, starts)
+    f_max = np.maximum.reduceat(sc, starts)
+    n_src = np.diff(np.concatenate([starts, [len(sw)]]))
+    if op == "union":
+        r = "add" if rule == "default" else rule
+    else:
+        r = "min" if rule == "default" else rule
+    if r == "add":
+        freq = f_add
+    elif r == "max":
+        freq = f_max
+    elif r == "min":
+        freq = f_min
+    elif r == "number":
+        freq = np.full_like(f_add, np.uint32(count_override))
+    else:
+        raise ValueError(f"rule {r} not valid for multi-list {op}")
+    inc = freq >= np.uint32(cutoff)
+    if op == "intrsec":
+        inc &= n_src == n_lists
+    return uw[inc], freq[inc].astype(np.uint32)
+
+
+def _rec_view(w, c):
+    """The raw 12-byte record stream of a source for the native kernels:
+    a .list mmap's own buffer (no gather copy), else packed records (an
+    index's words and counts)."""
+    raw = raw_record_view(w)
+    if raw is not None:
+        return raw
+    return pack_records(np.asarray(w, np.uint64), np.asarray(c, np.uint32))
+
+
+def _to_device(words, counts, dev):
+    """Host u64 words and u32 counts -> (int64 keys, int64 counts) on
+    ``dev``."""
+    import torch
+
+    from genometester4_tpu_torch.ops.encode import keys_from_u64
+    return (keys_from_u64(words).to(dev),
+            torch.from_numpy(np.asarray(counts, np.uint32).astype(np.int64))
+            .to(dev))
+
+
+def _to_host(keys, counts):
+    """(int64 keys, int64 u32 counts) on any device -> host (u64, u32)."""
+    import torch
+
+    from genometester4_tpu_torch.ops.encode import u64_from_keys
+    return (u64_from_keys(keys),
+            counts.to(torch.int32).cpu().numpy().view(np.uint32))
+
+
+def _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
+                       count_override, subtract):
+    """compare_pair's native host route (GT4_TPU_SETOPS_IMPL=host)."""
+    import queue
+    import threading
+
+    from genometester4_tpu_torch.utils.backend import disable_numpy_thp
+    from genometester4_tpu_torch.utils.native import get_lib
+    disable_numpy_thp()
+    lib = get_lib()
+    rint = RULE_NUMBERS[RULES[rule]]
+    r1 = _rec_view(w1, c1)
+    r2 = _rec_view(w2, c2)
+
+    n_threads = int(os.environ.get("OMP_NUM_THREADS",
+                                   os.cpu_count() or 1))
+    if n_threads > 1 and (h1.n_words + h2.n_words) > (1 << 20):
+        # multi-core hosts: cut both inputs at identical word
+        # boundaries (merge-path rank select) and run the zipper
+        # OpenMP-parallel across buckets; bucket-order concatenation
+        # is byte-identical to the sequential pass. Buffers are
+        # output-sized per op — a RAM-for-cores trade the streaming
+        # path below avoids on small machines.
+        nb = min(4 * n_threads, 64)
+        bounds = rank_bounds([np.asarray(w1), np.asarray(w2)], nb)
+        cuts1 = np.concatenate(
+            [[0], np.searchsorted(w1, bounds),
+             [h1.n_words]]).astype(np.int64)
+        cuts2 = np.concatenate(
+            [[0], np.searchsorted(w2, bounds),
+             [h2.n_words]]).astype(np.int64)
+        nb = len(cuts1) - 1
+        cap = 12 * (h1.n_words + h2.n_words)
+        bufs, ns, ss = {}, {}, {}
+        for op in ("union", "intrsec", "diff1", "diff2"):
+            if op in sinks:
+                bufs[op] = np.empty(max(cap, 12), np.uint8)
+                ns[op] = np.zeros(nb, np.int64)
+                ss[op] = np.zeros(nb, np.uint64)
+            else:
+                bufs[op] = ns[op] = ss[op] = None
+        lib.fgx_pair_ops_buckets(
+            r1, r2, cuts1, cuts2, nb, rint, cutoff, count_override,
+            int(subtract),
+            bufs["union"], ns["union"], ss["union"],
+            bufs["intrsec"], ns["intrsec"], ss["intrsec"],
+            bufs["diff1"], ns["diff1"], ss["diff1"],
+            bufs["diff2"], ns["diff2"], ss["diff2"])
+        offs = 12 * ((cuts1[:-1] - cuts1[0]) + (cuts2[:-1] - cuts2[0]))
+        for op, sink in sinks.items():
+            for b in range(nb):
+                m = int(ns[op][b])
+                if not m:
+                    continue
+                o = int(offs[b])
+                if sink.writer:
+                    sink.writer.append_records(
+                        bufs[op][o: o + 12 * m], m, int(ss[op][b]))
+                sink.n_words += m
+                sink.total_count += int(ss[op][b])
+        return
+
+    # Chunked resumable zipper (native fgx_pair_stream_*): output
+    # records stream to the writers in CHUNK-record pieces through a
+    # writer thread, so the file writes overlap the next chunk's
+    # merge and no output-sized buffer is ever materialized
+    # (the reference's one-pass-4-outputs structure,
+    # src/glistcompare.c:843-905, with the write moved off-thread).
+    CHUNK = 1 << 20
+    ALL_OPS = ("union", "intrsec", "diff1", "diff2")
+    active = [op in sinks for op in ALL_OPS]
+    st = lib.fgx_pair_stream_start(
+        r1, h1.n_words, r2, h2.n_words, rint, cutoff, count_override,
+        int(subtract), *[int(a) for a in active])
+    if not st:
+        raise MemoryError("pair stream allocation failed")
+    dummy = np.empty(12, np.uint8)
+    bufsets = []
+    for _ in range(2):
+        bufsets.append([np.empty(12 * CHUNK, np.uint8) if a else dummy
+                        for a in active])
+    n_out = np.zeros(4, np.int64)
+    sums = np.zeros(4, np.uint64)
+    q = queue.Queue()
+    free = queue.Queue()
+    for i in range(len(bufsets)):
+        free.put(i)
+
+    def pump():
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            si, counts, csums = item
+            for t, op in enumerate(ALL_OPS):
+                if active[t] and counts[t]:
+                    sink = sinks[op]
+                    m = int(counts[t])
+                    if sink.writer:
+                        sink.writer.append_records(
+                            bufsets[si][t][: 12 * m], m, int(csums[t]))
+                    sink.n_words += m
+                    sink.total_count += int(csums[t])
+            free.put(si)
+
+    th = threading.Thread(target=pump, daemon=True)
+    th.start()
+    try:
+        more = 1
+        while more:
+            si = free.get()
+            bs = bufsets[si]
+            more = lib.fgx_pair_stream_next(
+                st, bs[0], bs[1], bs[2], bs[3], CHUNK, n_out, sums)
+            q.put((si, n_out.copy(), sums.copy()))
+    finally:
+        q.put(None)
+        th.join()
+        lib.fgx_pair_stream_free(st)
+
+
+def compare_pair(list1: str, list2: str, ops: list[str], outputname: str = "out",
+                 cutoff: int = 1, rule: str = "default", count_override: int = 1,
+                 subtract: bool = False, count_only: bool = False,
+                 bucket_target: int = DEFAULT_BUCKET, device=None):
+    """Two-list compare producing any of union/intrsec/diff1/diff2.
+
+    Returns {op: (n_words, total_count)}; writes files unless count_only.
+    ``device``: where the device route runs (None: CUDA).
+    """
+    h1, w1, c1 = read_word_source(list1)
+    h2, w2, c2 = read_word_source(list2)
+    wlen = h1.word_length
+    sinks = {op: _OpSink(op, _op_filename(outputname, wlen, op), wlen,
+                         count_only) for op in ops}
+    if _host_route():
+        _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
+                           count_override, subtract)
+    else:
+        from genometester4_tpu_torch.ops import setops
+        from genometester4_tpu_torch.utils.device import resolve_device
+        dev = resolve_device(device)
+        n_buckets, bounds = _buckets(h1.n_words + h2.n_words, bucket_target)
+        for b in range(n_buckets):
+            a1, z1 = _bucket_slices(w1, bounds, b, n_buckets)
+            a2, z2 = _bucket_slices(w2, bounds, b, n_buckets)
+            if z1 - a1 + z2 - a2 == 0:
+                continue
+            aligned = setops.pair_align(*_to_device(w1[a1:z1], c1[a1:z1], dev),
+                                        *_to_device(w2[a2:z2], c2[a2:z2], dev))
+            for op, sink in sinks.items():
+                keys, counts = setops.apply_pair_op(
+                    *aligned, op=op, rule=RULES[rule], cutoff=cutoff,
+                    count_override=count_override, subtract=subtract)
+                if len(keys):
+                    sink.append(*_to_host(keys, counts))
+    results = {}
+    for op, sink in sinks.items():
+        sink.close()
+        results[op] = (sink.n_words, sink.total_count)
+    return results
+
+
+def _host_compare_multi(sink, data, op, rule, cutoff, count_override, debug):
+    """compare_multi's native host route (GT4_TPU_SETOPS_IMPL=host): a
+    streaming k-way merge over the raw record streams
+    (fgx_multi_stream_*), chunked output."""
+    import ctypes
+    import queue
+    import threading
+
+    from genometester4_tpu_torch.utils.backend import disable_numpy_thp
+    from genometester4_tpu_torch.utils.native import get_lib
+    disable_numpy_thp()
+    lib = get_lib()
+    n_lists = len(data)
+    eff = RULES.get(rule, "number")
+    if eff == "default":
+        eff = "add" if op == "union" else "min"
+    bufs_keepalive = []
+    ptrs = (ctypes.c_void_p * n_lists)()
+    lens = (ctypes.c_long * n_lists)()
+    for i, (h, w, c) in enumerate(data):
+        raw = _rec_view(w, c)
+        bufs_keepalive.append(raw)
+        ptrs[i] = raw.ctypes.data
+        lens[i] = len(w)
+    st = lib.fgx_multi_stream_start(ptrs, lens, n_lists,
+                                    int(op == "intrsec"), RULE_NUMBERS[eff],
+                                    cutoff, count_override)
+    if not st:
+        raise MemoryError("multi stream allocation failed")
+    # double-buffered writer thread: the file write overlaps the
+    # next chunk's merge (same pattern as the pair path)
+    CHUNK = 1 << 20
+    bufs2 = [np.empty(12 * CHUNK, np.uint8) for _ in range(2)]
+    n_out = ctypes.c_long(0)
+    s_out = ctypes.c_ulonglong(0)
+    q = queue.Queue()
+    free_q = queue.Queue()
+    for i in range(len(bufs2)):
+        free_q.put(i)
+
+    def pump():
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            bi, m, t = item
+            if sink.writer:
+                sink.writer.append_records(bufs2[bi][: 12 * m], m, t)
+            prev = sink.n_words
+            sink.n_words += m
+            sink.total_count += t
+            if debug:
+                _emit_progress_ticks(prev, sink.n_words)
+            free_q.put(bi)
+
+    th = threading.Thread(target=pump, daemon=True)
+    th.start()
+    try:
+        more = 1
+        while more:
+            bi = free_q.get()
+            more = lib.fgx_multi_stream_next(
+                st, bufs2[bi], CHUNK, ctypes.byref(n_out),
+                ctypes.byref(s_out))
+            m = n_out.value
+            if m:
+                q.put((bi, m, int(s_out.value)))
+            else:
+                free_q.put(bi)
+    finally:
+        q.put(None)
+        th.join()
+        lib.fgx_multi_stream_free(st)
+
+
+def compare_multi(paths: list[str], op: str, outputname: str = "out",
+                  cutoff: int = 1, rule: str = "default",
+                  count_override: int = 1, count_only: bool = False,
+                  bucket_target: int = DEFAULT_BUCKET, debug: int = 0,
+                  device=None):
+    """N-list union/intersection (N > 2). ``device``: where the device
+    route runs (None: CUDA)."""
+    data = [read_word_source(p) for p in paths]
+    wlen = data[0][0].word_length
+    n_lists = len(data)
+    # the reference validates rules per op with its enum number in the
+    # message and exit code 1 (src/glistcompare.c:518-523,617-623)
+    eff = RULES[rule] if rule in RULES else "number"
+    if op == "union" and eff not in ("default", "add", "max", "number"):
+        sys.stderr.write(
+            "union_multi: Invalid rule %d (only ADD, MAX and NUMBER "
+            "allowed)\n" % RULE_NUMBERS[eff])
+        raise SystemExit(1)
+    if op == "intrsec" and eff not in ("default", "add", "min", "max",
+                                       "number"):
+        sys.stderr.write(
+            "intersect_multi: Invalid rule %d (only ADD, MIN, MAX and "
+            "NUMBER allowed)\n" % RULE_NUMBERS[eff])
+        raise SystemExit(1)
+
+    sink = _OpSink(op, _op_filename(outputname, wlen, op), wlen,
+                   count_only, debug=debug)
+    if _host_route():
+        _host_compare_multi(sink, data, op, rule, cutoff, count_override,
+                            debug)
+        sink.close()
+        return {op: (sink.n_words, sink.total_count)}
+
+    from genometester4_tpu_torch.ops import setops
+    from genometester4_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(device)
+    total = sum(h.n_words for h, _, _ in data)
+    n_buckets, bounds = _buckets(total, bucket_target)
+    for b in range(n_buckets):
+        parts_w, parts_c = [], []
+        for h, w, c in data:
+            a, z = _bucket_slices(w, bounds, b, n_buckets)
+            if z > a:
+                parts_w.append(w[a:z])
+                parts_c.append(c[a:z])
+        if not parts_w:
+            # intersection of nothing in this range — nothing to write
+            continue
+        keys, counts = setops.apply_multi_op(
+            *_to_device(np.concatenate(parts_w), np.concatenate(parts_c),
+                        dev),
+            n_lists=n_lists, op=op, rule=RULES.get(rule, "number"),
+            cutoff=cutoff, count_override=count_override)
+        if len(keys):
+            sink.append(*_to_host(keys, counts))
+    sink.close()
+    return {op: (sink.n_words, sink.total_count)}
+
+
+def compare_pair_mm(list1: str, list2: str, ops: list[str],
+                    outputname: str = "out", cutoff: int = 1, nmm: int = 1,
+                    subtract: bool = False, count_only: bool = False,
+                    chunk: int = 4096, debug: int = 0):
+    """Mismatch-tolerant difference (src/glistcompare.c:957-1169).
+
+    diff1 keeps words of list1 (passing the exact-match difference test)
+    whose exactly-m neighborhoods, for every m in 1..nmm, stay below the
+    cutoff in list2. Quirks replicated:
+    * the candidate zipper computes cutoff flags from ORIGINAL freqs but
+      the stored freq uses the subtract-modified freq2
+      (src/glistcompare.c:1030-1047) including u32 wraparound;
+    * subtract mode drops a candidate outright when any neighbor's count
+      in list2 exceeds its count in list1 (search_query returns ~0,
+      src/glistcompare.c:1140-1146);
+    * ddiff never uses subtraction in its neighborhood pass (reference
+      would dereference NULL; see fetch_relevant_words call :1105).
+    """
+    from genometester4_tpu_torch.ops.encode import canonical_u64
+    from genometester4_tpu_torch.ops.mismatch import (exact_mismatch_masks,
+                                                      lookup_counts)
+
+    h1, w1, c1 = read_word_source(list1)
+    h2, w2, c2 = read_word_source(list2)
+    k = h1.word_length
+    w1 = np.asarray(w1)
+    w2 = np.asarray(w2)
+
+    if debug:
+        # compare_wordmaps_mm's own header (src/glistcompare.c:1005-1008)
+        sys.stderr.write("Table 1: %d entries\n" % len(w1))
+        sys.stderr.write("Table 2: %d entries\n" % len(w2))
+
+    all_w = np.union1d(w1, w2)
+    f1 = lookup_counts(w1, np.asarray(c1), all_w).astype(np.uint32)
+    f2 = lookup_counts(w2, np.asarray(c2), all_w).astype(np.uint32)
+    p1, p2 = f1 > 0, f2 > 0
+    ge1, ge2 = f1 >= np.uint32(cutoff), f2 >= np.uint32(cutoff)
+    # subtract modifies freq2 in the equal-words branch before both checks
+    f2e = np.where(p1 & p2 & subtract & (f1 <= f2), f2 - f1, f2)
+
+    candidates = {}
+    if "diff1" in ops:
+        eq = p1 & p2 & ge1 & ~ge2
+        only1 = p1 & ~p2 & ge1 & (not subtract)
+        freqs = np.where(eq, f1 - f2e, f1).astype(np.uint32)  # u32 wrap ok
+        mask = eq | only1
+        candidates["diff1"] = (all_w[mask], freqs[mask], w2, c2, w1, c1,
+                               subtract)
+    if "diff2" in ops:
+        eq = p1 & p2 & ge2 & ~ge1
+        only2 = p2 & ~p1 & ge2
+        freqs = np.where(eq, f2e - f1, f2).astype(np.uint32)
+        mask = eq | only2
+        candidates["diff2"] = (all_w[mask], freqs[mask], w1, c1, None, None,
+                               False)
+
+    def _present(words_sorted, queries):
+        idx = np.searchsorted(words_sorted, queries)
+        idx_c = np.minimum(idx, max(len(words_sorted) - 1, 0))
+        if len(words_sorted) == 0:
+            return np.zeros(len(queries), bool)
+        return (idx < len(words_sorted)) & (words_sorted[idx_c] == queries)
+
+    use_native = os.environ.get("GT4_MM_IMPL", "native") != "numpy"
+    results = {}
+    for op, (cw, cf, mw, mc, qw, qc, sub) in candidates.items():
+        if debug and op == "diff1":
+            # only find_diff announces itself (src/glistcompare.c:1058-1061)
+            sys.stderr.write("Finding diff with mismatches (%d entries)\n"
+                             % len(cw))
+        if use_native:
+            # per-candidate early exit (the running present-count is
+            # monotone in non-subtract mode, and subtract mode bails on
+            # the first over-present neighbor) — numpy must always
+            # materialize the whole neighborhood (fgx_mm_filter;
+            # GT4_MM_IMPL=numpy keeps the vectorized twin for the
+            # differential tests)
+            from genometester4_tpu_torch.utils.native import get_lib
+            lib = get_lib()
+            alive8 = np.ones(len(cw), np.uint8)
+            cwc = np.ascontiguousarray(cw, np.uint64)
+            mwc = np.ascontiguousarray(mw, np.uint64)
+            qwc = (np.ascontiguousarray(qw, np.uint64) if sub
+                   else np.zeros(1, np.uint64))
+            for m in range(1, nmm + 1):
+                masks = np.ascontiguousarray(exact_mismatch_masks(k, m))
+                lib.fgx_mm_filter(cwc, len(cwc), k, masks, len(masks),
+                                  mwc, len(mwc), qwc,
+                                  len(qwc) if sub else 0,
+                                  cutoff, int(sub), alive8)
+            alive = alive8.astype(bool)
+            out_w, out_c = cw[alive], cf[alive]
+            path = _op_filename(outputname, k, op, nmm)
+            if not count_only:
+                write_list(path, k, out_w, out_c)
+            results[op] = (len(out_w), int(out_c.astype(np.uint64).sum()))
+            continue
+        alive = np.ones(len(cw), bool)
+        for m in range(1, nmm + 1):
+            masks = exact_mismatch_masks(k, m)
+            idx_alive = np.flatnonzero(alive)
+            for s in range(0, len(idx_alive), chunk):
+                sel = idx_alive[s:s + chunk]
+                neigh = canonical_u64(
+                    cw[sel, None] ^ masks[None, :], k).reshape(-1)
+                # gt4_word_dict_lookup returns the FOUND FLAG, not the
+                # count (the count goes into inst->value, which
+                # search_query never reads — src/word-dict.c:61-71,
+                # src/glistcompare.c:1114-1127): the neighborhood sum is
+                # the number of PRESENT neighbor words (fuzz finding)
+                cur = _present(mw, neigh).astype(np.int64)
+                if sub:
+                    qf = _present(qw, neigh).astype(np.int64)
+                    bad = (cur > qf).reshape(len(sel), -1).any(axis=1)
+                    s_sum = ((cur - qf).reshape(len(sel), -1).sum(axis=1)
+                             & 0xFFFFFFFF)
+                    drop = bad | (s_sum >= cutoff)
+                else:
+                    s_sum = cur.reshape(len(sel), -1).sum(axis=1) & 0xFFFFFFFF
+                    drop = s_sum >= cutoff
+                alive[sel[drop]] = False
+        out_w, out_c = cw[alive], cf[alive]
+        path = _op_filename(outputname, k, op, nmm)
+        if not count_only:
+            write_list(path, k, out_w, out_c)
+        results[op] = (len(out_w), int(out_c.astype(np.uint64).sum()))
+    return results
+
+
+def make_subset(list_path: str, method: str, size: int, outputname: str,
+                seed: int):
+    """Random subsetting (-ss): exact drand48 stream parity with the
+    reference (src/glistcompare.c:719-787)."""
+    h, words, counts = read_word_source(list_path)
+    out_path = f"{outputname}_subset_{h.word_length}.list"
+    METHODS = {"rand": 0, "rand_unique": 1, "rand_weighted_unique": 2}
+    if method in METHODS:
+        # native selection loop: glibc srand48/drand48 IS the
+        # reference's PRNG, so the stream is bit-exact by construction
+        # (src/glistcompare.c:719-787); the Python Rand48 twin below
+        # remains the differential oracle for the stream itself.
+        import ctypes
+
+        from genometester4_tpu_torch.utils.backend import disable_numpy_thp
+        from genometester4_tpu_torch.utils.native import get_lib
+        disable_numpy_thp()   # multi-MB buffers below
+        if method != "rand" and size > h.n_words:
+            raise ValueError("subset size bigger than number of unique kmers")
+        lib = get_lib()
+        raw = raw_record_view(words)
+        if raw is None:
+            raw = pack_records(np.asarray(words, np.uint64),
+                               np.asarray(counts, np.uint32))
+            raw = np.ascontiguousarray(raw.view(np.uint8).reshape(-1))
+        out_buf = np.empty(max(12, 12 * h.n_words), np.uint8)
+        tot = ctypes.c_ulonglong(0)
+        # in = the header's total (inst->sum_counts IS header->total for
+        # a list source, src/glistcompare.c:735) — no counts-column scan
+        m = lib.fgx_subset(raw, h.n_words, int(h.total_count),
+                           METHODS[method], size, seed, out_buf,
+                           ctypes.byref(tot))
+        with ListWriter(out_path, h.word_length) as w:
+            w.append_records(out_buf[: 12 * m], m, tot.value)
+        return out_path
+    rng = Rand48(seed)
+    sel_words, sel_counts = [], []
+    out = size
+    if method == "rand":
+        # one draw per count unit until `out` exhausted. Drawing a whole
+        # word's values at once over-advances the PRNG only after `out`
+        # hits 0, when the reference stops drawing too — harmless.
+        inn = int(counts.sum(dtype=np.uint64))
+        for wi in range(len(words)):
+            if out <= 0:
+                break
+            c = int(counts[wi])
+            vals = rng.drand_array(c)
+            acc = 0
+            for v in vals:
+                if out <= 0:
+                    break
+                if v <= out / inn:
+                    acc += 1
+                    out -= 1
+                inn -= 1
+            if acc > 0:
+                sel_words.append(int(words[wi]))
+                sel_counts.append(acc)
+    elif method == "rand_unique":
+        if size > h.n_words:
+            raise ValueError("subset size bigger than number of unique kmers")
+        inn = h.n_words
+        for wi in range(len(words)):
+            if out <= 0:
+                break
+            if rng.drand() <= out / inn:
+                sel_words.append(int(words[wi]))
+                sel_counts.append(int(counts[wi]))
+                out -= 1
+            inn -= 1
+    elif method == "rand_weighted_unique":
+        if size > h.n_words:
+            raise ValueError("subset size bigger than number of unique kmers")
+        inn = int(counts.sum(dtype=np.uint64))
+        for wi in range(len(words)):
+            if out <= 0:
+                break
+            c = int(counts[wi])
+            if rng.drand() <= c * out / inn:
+                sel_words.append(int(words[wi]))
+                sel_counts.append(c)
+                out -= 1
+            inn -= c
+    else:
+        raise ValueError(f"unknown subset method {method}")
+
+    write_list(out_path, h.word_length, np.array(sel_words, np.uint64),
+               np.array(sel_counts, np.uint32))
+    return out_path

@@ -17,9 +17,16 @@ CUDA card, as in JAX), each slab is counted by the mesh route of
 ``parallel.sharding`` instead of ``count_chunks``; the merge and the
 writer are the same.
 
+``make_index`` (glistmaker ``--index``) runs, per 2^25-code chunk, kernel
+A's forward windows, their canonical words and directions, and a
+``nonzero`` compaction of the valid windows (``index_chunk``) on the
+device; the location table, the pair sort and the index records stay on
+the host, as in JAX. ``GT4_TPU_COUNT_IMPL=host`` takes its native host
+route (one rolling C extraction per slab).
+
 Output bytes are identical to the JAX package's. Not ported here: the
-host-native route and its cost model (``device`` is explicit instead),
-multihost counting and ``make_index``.
+host-native route of ``make_list`` and the cost model of both (``device``
+is explicit instead), and multihost counting.
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ from genometester4_tpu_torch.formats.list_format import (ListHeader,
                                                          read_list,
                                                          write_list)
 from genometester4_tpu_torch.io.fasta import iter_code_slabs
-from genometester4_tpu_torch.ops.encode import keys_from_u64, u64_from_keys
+from genometester4_tpu_torch.ops.encode import (SIGN, canonical,
+                                                keys_from_u64, u64_from_keys,
+                                                word_mask)
 from genometester4_tpu_torch.ops.kmers import extract_kmers_best
-from genometester4_tpu_torch.ops.sortcount import count_unique
+from genometester4_tpu_torch.ops.sortcount import count_unique, sort_compact
 from genometester4_tpu_torch.utils.device import resolve_device
 
 # 2^25 bases per chunk: ~1 GB of device memory per chunk (codes, int64
@@ -292,3 +301,215 @@ def make_list(input_files, word_length: int, output_path: str,
             except OSError:
                 pass
     return hdr
+
+
+def forward_windows(codes: torch.Tensor, k: int):
+    """Every window of one chunk (uint8 codes, 255 = invalid) on its
+    device: (canonical word int64, is the reverse complement bool, valid
+    bool), each [n]. Kernel A extracts the forward words; a palindrome's
+    direction is forward (``canonical == forward``), as JAX's
+    ``~((chi == fhi) & (clo == flo))`` gives."""
+    keys, valid = extract_kmers_best(codes, k, canonical=False)
+    words = keys ^ SIGN
+    if valid is None:   # k <= 31: validity is the flag bit 2k
+        valid = words <= word_mask(k)
+        words = words & word_mask(k)
+    can = canonical(words, k)
+    return can, can != words, valid
+
+
+def index_chunk(codes: torch.Tensor, k: int):
+    """One chunk of ``make_index`` on the device of ``codes``: the valid
+    windows' (canonical word int64, window position int64, is the reverse
+    complement bool) in stream order, with their count (a host int)."""
+    can, is_rc, valid = forward_windows(codes, k)
+    pos = torch.arange(codes.numel(), device=codes.device)
+    return sort_compact(valid, can, pos, is_rc)
+
+
+def _header_only_index(output_path: str, k: int) -> None:
+    """The index of zero words: the reference writes the header alone
+    (write_index_header, src/glistmaker.c:343-346,577-630)."""
+    import struct
+    tmp = f"{output_path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(b"I4TG")
+        f.write(struct.pack("<II", 4, 2))
+        f.write(struct.pack("<I", k))
+        f.write(struct.pack("<QQ", 0, 0))
+        f.write(struct.pack("<IIII", 1, 1, 1, 0))
+        f.write(struct.pack("<QQQ", 72, 72, 72))
+    os.replace(tmp, output_path)
+
+
+def make_index(input_files, word_length: int, output_path: str,
+               min_count: int = 1, max_count: int = 0xFFFFFFFF,
+               chunk_bases: int = DEFAULT_CHUNK_BASES,
+               slab_bytes: int = 1 << 28, device=None,
+               stages: dict | None = None):
+    """glistmaker --index: FASTA/FASTQ -> .index location file, byte for
+    byte the JAX package's (reference writer src/glistmaker.c:366-782).
+
+    Location semantics (src/glistmaker.c:1052-1068): pos counts printable
+    sequence characters, subseq is the record index within the file, dir
+    means the canonical word is the reverse complement. Ingestion streams
+    slabs (``io.fasta.iter_slabs_indexed``); the location table is
+    O(total windows), as in the reference.
+
+    ``device``: where the chunks run (None: CUDA; ``"cpu"``: the plain
+    versions); ``GT4_TPU_COUNT_IMPL=host`` takes the native host route
+    instead. ``min_count``/``max_count`` reach the index records only:
+    every location is written, the offsets count kept words only (the
+    reference's cutoff bug, ``formats.index_format``). ``stages``, when
+    given, receives the seconds of each stage: "chunks" (slab parse,
+    extraction and the copies back), "pair sort", "record emit", "write".
+    """
+    import ctypes
+
+    from genometester4_tpu_torch.formats.index_format import (
+        IndexFile, get_bitsize, write_index_file)
+    from genometester4_tpu_torch.io.fasta import iter_slabs_indexed
+    from genometester4_tpu_torch.utils.native import get_lib
+
+    k = word_length
+    host = os.environ.get("GT4_TPU_COUNT_IMPL") == "host"
+    if host:
+        from genometester4_tpu_torch.utils.backend import disable_numpy_thp
+        disable_numpy_thp()
+        lib = get_lib()
+    else:
+        dev = resolve_device(device)
+    times = {} if stages is None else stages
+    t0 = time.perf_counter()
+    files_meta = []
+    per_file = []  # (words, rec, lpos, dirs)
+    max_lpos = 0
+    max_subseq = 0
+    for path in input_files:
+        span_parts = []
+        len_parts = []       # FASTQ per-record char lengths
+        is_fastq = False
+        w_l, r_l, p_l, d_l = [], [], [], []
+        stream_size = 0
+        n_rec = 0
+
+        def add(meta, words, spos, dirs):
+            # slab positions -> (record, record-local position)
+            seg = np.searchsorted(meta.seg_starts, spos, side="right") - 1
+            w_l.append(words)
+            r_l.append(meta.seg_rec[seg])
+            p_l.append(spos - meta.seg_starts[seg] + meta.seg_lpos0[seg])
+            d_l.append(dirs)
+
+        for codes, meta in iter_slabs_indexed(path, k, slab_bytes):
+            if codes is None:
+                stream_size = meta.stream_size
+                n_rec = meta.n_records
+                break
+            span_parts.append(meta.name_spans)
+            if meta.rec_lengths is not None:
+                is_fastq = True
+                len_parts.append(meta.rec_lengths)
+            n = len(codes)
+            if n < k:
+                continue
+            if host:
+                cap = max(n - k + 1, 1)
+                wbuf = np.empty(cap, np.uint64)
+                pbuf = np.empty(cap, np.int64)
+                dbuf = np.empty(cap, np.uint8)
+                m = lib.fgx_extract_canonical_posdir(
+                    np.ascontiguousarray(codes, np.uint8), n, k,
+                    wbuf, pbuf, dbuf)
+                if m:
+                    add(meta, wbuf[:m], pbuf[:m], dbuf[:m])
+                continue
+            step = chunk_bases - (k - 1)
+            for start in range(0, max(n - (k - 1), 1), step):
+                chunk = pad_pow2_chunk(codes[start:start + chunk_bases],
+                                       chunk_bases)
+                m, can, pos, is_rc = index_chunk(
+                    torch.from_numpy(chunk).to(dev), k)
+                if m:
+                    add(meta, can.cpu().numpy().view(np.uint64),
+                        pos.cpu().numpy() + start,
+                        is_rc.to(torch.uint8).cpu().numpy())
+
+        # byte-level subsequence registry (src/glistmaker.c:1030-1050):
+        # name_pos/name_len from the record header, seq span in BYTES up
+        # to the next record start (FASTA) or the sequence line (FASTQ)
+        ns = (np.concatenate(span_parts) if span_parts
+              else np.zeros((0, 2), np.int64))
+        subseqs = np.zeros((n_rec, 4), np.int64)
+        subseqs[:, 0] = ns[:, 0]
+        subseqs[:, 1] = ns[:, 1] - ns[:, 0]
+        seq_pos = ns[:, 1] + 1
+        subseqs[:, 2] = seq_pos
+        if not is_fastq:
+            nxt = np.concatenate([ns[1:, 0] - 1, [stream_size]])
+            subseqs[:, 3] = nxt - seq_pos
+        else:
+            subseqs[:, 3] = (np.concatenate(len_parts) if len_parts
+                             else np.zeros(0, np.int64))
+        # the registry's file size is the ON-DISK size (the reference
+        # stats the file, so a .gz records its compressed size) while the
+        # subseq offsets and spans are decompressed-stream coordinates
+        disk_size = (os.path.getsize(path) if path != "-"
+                     else stream_size)
+        files_meta.append(IndexFile(path.encode(), disk_size, subseqs))
+        if n_rec:
+            max_subseq = max(max_subseq, n_rec - 1)
+        if not w_l:
+            per_file.append(None)
+            continue
+        lpos = np.concatenate(p_l)
+        if len(lpos):
+            max_lpos = max(max_lpos, int(lpos.max()))
+        per_file.append((np.concatenate(w_l), np.concatenate(r_l), lpos,
+                         np.concatenate(d_l)))
+    times["chunks"] = time.perf_counter() - t0   # each copy back synced
+
+    if not any(pf is not None and len(pf[0]) for pf in per_file):
+        _header_only_index(output_path, k)
+        return
+
+    n_file_bits = get_bitsize(len(input_files) - 1)
+    n_subseq_bits = get_bitsize(max_subseq)
+    n_pos_bits = get_bitsize(max_lpos)
+
+    t0 = time.perf_counter()
+    words_parts, code_parts = [], []
+    for file_idx, pf in enumerate(per_file):
+        if pf is None:
+            continue
+        words, rec, lpos, dirs = pf
+        code = ((np.uint64(file_idx)
+                 << np.uint64(n_subseq_bits + n_pos_bits + 1))
+                | (rec.astype(np.uint64) << np.uint64(n_pos_bits + 1))
+                | (lpos.astype(np.uint64) << np.uint64(1))
+                | dirs.astype(np.uint64))
+        words_parts.append(words)
+        code_parts.append(code)
+    aw = np.ascontiguousarray(np.concatenate(words_parts), np.uint64)
+    ac = np.ascontiguousarray(np.concatenate(code_parts), np.uint64)
+    # location codes pack (file, record, position, dir) in stream order,
+    # so they ascend in the concatenation: one stable LSD pair sort by
+    # word leaves the (word, code) pairs in lexicographic order
+    lib = get_lib()
+    if lib.fgx_sort_pair_u64(aw, ac, len(aw), 2 * k):
+        raise MemoryError("pair sort scratch allocation failed")
+    times["pair sort"] = time.perf_counter() - t0
+    # one C pass over the runs emits the interleaved k-mer records (the
+    # cutoff bug kept: offsets accumulate over kept words only, every
+    # location is written)
+    t0 = time.perf_counter()
+    recs = np.empty(2 * len(aw), np.uint64)
+    nloc = ctypes.c_ulonglong(0)
+    m = lib.fgx_index_kmer_records(aw, len(aw), min_count, max_count, recs,
+                                   ctypes.byref(nloc))
+    times["record emit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_index_file(output_path, k, files_meta, None, None,
+                     int(nloc.value), ac, n_file_bits, n_subseq_bits,
+                     n_pos_bits, kmer_recs=recs[: 2 * m])
+    times["write"] = time.perf_counter() - t0

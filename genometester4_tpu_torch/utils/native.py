@@ -8,7 +8,12 @@ the FASTA/FASTQ slab parsers (``io.fasta``), the SW fill and traceback
 grouping and calling (``pipelines.gassemble``), gmer_counter's text
 database parser, count formatter and host counting route
 (``formats.gmerdb``, ``pipelines.gmercount``), and the glibc ``rand()``
-stream (``srand``, ``rand_skip``). It is host code, not a GPU kernel.
+stream (``srand``, ``rand_skip``), glistmaker's index writer and host
+extraction (``pipelines.listmaker.make_index``) and glistcompare's host
+set operations, mismatch filter and subset (``pipelines.listcompare``).
+It is host code, not a GPU kernel. ``load_raw`` is the same library as a
+bare ``CDLL`` without numpy, for the numpy-free CLI fast paths
+(``pipelines.subset_fast``, ``pipelines.setops_stream``).
 
 The library is built with ``cc`` at first use, with the JAX package's
 flags, into the port's ``_build/`` (never into ``native/``), named by a
@@ -24,8 +29,6 @@ import hashlib
 import os
 import subprocess
 import threading
-
-import numpy as np
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -47,6 +50,7 @@ CC_LINK = ["cc", "-shared", "-fopenmp"]
 
 _lock = threading.Lock()
 _lib = None
+_raw_lib = None
 
 
 def library_path() -> str:
@@ -87,9 +91,21 @@ def build() -> str:
     return path
 
 
+def load_raw() -> ctypes.CDLL:
+    """The library as a bare ``CDLL`` with no argtypes declared (callers
+    pass plain ctypes objects), built if needed; imports no numpy.
+    ``get_lib`` is the numpy-typed view of the same file."""
+    global _raw_lib
+    with _lock:
+        if _raw_lib is None:
+            _raw_lib = ctypes.CDLL(build())
+        return _raw_lib
+
+
 def get_lib() -> ctypes.CDLL:
     """Build if needed, load once per process, declare the signatures."""
     global _lib
+    import numpy as np
     with _lock:
         if _lib is not None:
             return _lib
@@ -197,6 +213,69 @@ def get_lib() -> ctypes.CDLL:
             u32p, i64p, u8p, llp]
         lib.fgx_index_hits_batched.restype = ctypes.c_long
         lib.fgx_index_hits_batched.argtypes = lib.fgx_index_hits.argtypes
+        # glistmaker --index: host extraction, the (word, code) pair sort
+        # and the interleaved k-mer records
+        lib.fgx_extract_canonical_posdir.restype = ctypes.c_long
+        lib.fgx_extract_canonical_posdir.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_int, u64p, i64p, u8p]
+        lib.fgx_sort_pair_u64.restype = ctypes.c_int
+        lib.fgx_sort_pair_u64.argtypes = [
+            u64p, u64p, ctypes.c_long, ctypes.c_int]
+        lib.fgx_index_kmer_records.restype = ctypes.c_long
+        lib.fgx_index_kmer_records.argtypes = [
+            u64p, ctypes.c_long, ctypes.c_uint, ctypes.c_uint, u64p,
+            ctypes.POINTER(ctypes.c_ulonglong)]
+        # glistcompare's host route: the pair zipper (streamed, or in
+        # buckets over threads), the N-list merge, -mm and -ss
+        u64sp = ctypes.POINTER(ctypes.c_ulonglong)
+        lib.fgx_pair_align.restype = ctypes.c_long
+        lib.fgx_pair_align.argtypes = [
+            u64p, u32p, ctypes.c_long, u64p, u32p, ctypes.c_long,
+            u64p, u32p, u32p]
+
+        def optional(p):
+            class _Optional:
+                @classmethod
+                def from_param(cls, v):
+                    return None if v is None else p.from_param(v)
+            return _Optional
+
+        lib.fgx_pair_ops_buckets.restype = None
+        lib.fgx_pair_ops_buckets.argtypes = [
+            u8p, u8p, i64p, i64p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+            *[optional(p) for _ in range(4) for p in (u8p, i64p, u64p)]]
+        lib.fgx_pair_stream_start.restype = ctypes.c_void_p
+        lib.fgx_pair_stream_start.argtypes = [
+            u8p, ctypes.c_long, u8p, ctypes.c_long,
+            ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.fgx_pair_stream_next.restype = ctypes.c_int
+        lib.fgx_pair_stream_next.argtypes = [
+            ctypes.c_void_p, u8p, u8p, u8p, u8p, ctypes.c_long, i64p, u64p]
+        lib.fgx_pair_stream_free.restype = None
+        lib.fgx_pair_stream_free.argtypes = [ctypes.c_void_p]
+        lib.fgx_multi_stream_start.restype = ctypes.c_void_p
+        lib.fgx_multi_stream_start.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), lp, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_uint, ctypes.c_uint]
+        lib.fgx_multi_stream_next.restype = ctypes.c_int
+        lib.fgx_multi_stream_next.argtypes = [
+            ctypes.c_void_p, u8p, ctypes.c_long, lp, u64sp]
+        lib.fgx_multi_stream_free.restype = None
+        lib.fgx_multi_stream_free.argtypes = [ctypes.c_void_p]
+        lib.fgx_mm_filter.restype = ctypes.c_long
+        lib.fgx_mm_filter.argtypes = [
+            u64p, ctypes.c_long, ctypes.c_int,      # candidates, n, k
+            u64p, ctypes.c_long,                    # masks
+            u64p, ctypes.c_long,                    # the other list (sorted)
+            u64p, ctypes.c_long,                    # the own list, subtract
+            ctypes.c_uint, ctypes.c_int,            # cutoff, subtract
+            u8p]                                    # alive (in-out)
+        lib.fgx_subset.restype = ctypes.c_long
+        lib.fgx_subset.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_ulonglong, ctypes.c_int,
+            ctypes.c_ulonglong, ctypes.c_long, u8p, u64sp]
         _lib = lib
         return lib
 

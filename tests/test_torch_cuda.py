@@ -404,6 +404,138 @@ def test_gmer_counter_cuda_equals_cpu(cuda, tmp_path, monkeypatch, k):
     assert results["cuda"][1] >= 2 and results["cpu"][1] == 0
 
 
+def _genome_fasta(path, seed, n=30_000):
+    """Three records with N runs, a repeated segment and a record shorter
+    than 25."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    g = rng.choice(acgt, n)
+    g[7000:7400] = g[100:500]
+    g[9000:9030] = ord("N")
+    recs = [g[:12_000].tobytes(), g[12_000:12_010].tobytes(),
+            g[12_010:].tobytes()]
+    path.write_bytes(b"".join(
+        b">r%d\n" % i + b"".join(r[j:j + 80] + b"\n"
+                                for j in range(0, len(r), 80))
+        for i, r in enumerate(recs)))
+
+
+@pytest.mark.parametrize("k", [12, 25, 32])
+def test_make_index_cuda_equals_cpu(cuda, tmp_path, k):
+    """make_index on CUDA (kernel A forward, canonical, nonzero
+    compaction) over several 2^12-base chunks: the same .index bytes as
+    on the CPU; kernel A launches on CUDA only."""
+    from genometester4_tpu_torch.pipelines.listmaker import make_index
+
+    _genome_fasta(tmp_path / "g.fa", seed=k)
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = extract_kmers_cuda.launches
+        make_index([str(tmp_path / "g.fa")], k, str(tmp_path / device),
+                   chunk_bases=1 << 12, slab_bytes=10_001, device=device,
+                   min_count=2)
+        out[device] = ((tmp_path / device).read_bytes(),
+                       extract_kmers_cuda.launches - before)
+    assert out["cuda"][0] == out["cpu"][0] and len(out["cpu"][0]) > 1000
+    assert out["cuda"][1] > 3 and out["cpu"][1] == 0
+
+
+def _word_lists(seed, n_lists=3, n=50_000, wrap=False):
+    rng = np.random.default_rng(seed)
+    base = np.unique(rng.integers(0, 1 << 50, n).astype(np.uint64))
+    out = []
+    for _ in range(n_lists):
+        keep = rng.random(len(base)) < 0.6
+        c = rng.integers(1, 9, keep.sum()).astype(np.uint32)
+        if wrap:
+            c[rng.random(len(c)) < 0.3] = 0xFFFFFFF9
+        out.append((base[keep], c))
+    return out
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+def test_setops_cuda_equal_cpu(cuda, wrap):
+    """pair_align, apply_pair_op (every op, rules add/max/number/subtract,
+    -du) and apply_multi_op (every multi rule) on CUDA against the CPU;
+    with ``wrap``, counts whose sums wrap as u32."""
+    from genometester4_tpu_torch.ops import setops
+
+    def on(dev, w, c):
+        return (tenc.keys_from_u64(w).to(dev),
+                torch.from_numpy(c.astype(np.int64)).to(dev))
+
+    (w1, c1), (w2, c2), (w3, c3) = _word_lists(3 + wrap, wrap=wrap)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        al = setops.pair_align(*on(dev, w1, c1), *on(dev, w2, c2))
+        res = [a.cpu() for a in al]
+        for op in ("union", "intrsec", "diff1", "diff2"):
+            for rule, sub in (("default", False), ("default", True),
+                              ("add", False), ("max", False),
+                              ("number", False), ("subtract", False)):
+                res += [a.cpu() for a in setops.apply_pair_op(
+                    *al, op=op, rule=rule, cutoff=2, count_override=3,
+                    subtract=sub)]
+        keys, counts = on(dev, np.concatenate([w1, w2, w3]),
+                          np.concatenate([c1, c2, c3]))
+        for op in ("union", "intrsec"):
+            for rule in ("default", "add", "min", "max", "number"):
+                res += [a.cpu() for a in setops.apply_multi_op(
+                    keys, counts, 3, op, rule, cutoff=2, count_override=4)]
+        got[dev] = res
+    assert len(got["cuda"]) == len(got["cpu"])
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a, b)
+    if wrap:
+        assert any((t < 0xFFFFFFF0).all() and t.numel() for t in got["cpu"])
+
+
+def test_list_clis_cuda_equal_cpu(cuda, tmp_path):
+    """Both list CLIs with device="cuda" and device="cpu": glistmaker .list
+    (kernels A and B) and --index (kernel A), then glistcompare on two
+    lists (compare_pair) and on three sources with an .index
+    (compare_multi): the same rc, stdout, stderr and files."""
+    import contextlib
+    import io
+
+    from genometester4_tpu_torch.cli.glistcompare import main as compare
+    from genometester4_tpu_torch.cli.glistmaker import main as maker
+
+    _genome_fasta(tmp_path / "g.fa", seed=1)
+    _genome_fasta(tmp_path / "h.fa", seed=2)
+    runs = [(maker, ["../g.fa", "-w", "21", "-o", "g"]),
+            (maker, ["../h.fa", "-w", "21", "-o", "h"]),
+            (maker, ["../g.fa", "-w", "21", "-o", "g", "--index"]),
+            (compare, ["g_21.list", "h_21.list", "-u", "-i", "-d", "-dd"]),
+            (compare, ["g_21.list", "h_21.list", "g_21.index", "-u", "-o",
+                       "m"])]
+    got = {}
+    for device in ("cuda", "cpu"):
+        d = tmp_path / device
+        d.mkdir()
+        old = os.getcwd()
+        os.chdir(d)
+        before = (extract_kmers_cuda.launches, run_marks_cuda.launches)
+        outs = []
+        try:
+            for main, args in runs:
+                out, err = io.StringIO(), io.StringIO()
+                with contextlib.redirect_stdout(out), \
+                        contextlib.redirect_stderr(err):
+                    rc = main(args, device=device)
+                outs.append((rc, out.getvalue(), err.getvalue()))
+        finally:
+            os.chdir(old)
+        files = {p.name: p.read_bytes() for p in d.iterdir()}
+        got[device] = (outs, files,
+                       (extract_kmers_cuda.launches - before[0],
+                        run_marks_cuda.launches - before[1]))
+    assert got["cuda"][:2] == got["cpu"][:2]
+    assert all(rc == 0 for rc, _, _ in got["cpu"][0])
+    assert len(got["cpu"][1]) == 8
+    assert min(got["cuda"][2]) > 0 and got["cpu"][2] == (0, 0)
+
+
 def _sorted_runs(cuda, seed, n, L, card, sentinel_tails=False):
     """int64 keys in [-card, card) sorted within each length-L run; with
     ``sentinel_tails`` each run ends in INT64_MAX from a random point."""

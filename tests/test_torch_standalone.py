@@ -5,8 +5,11 @@ Statically: every ``.py`` under the package is walked with ``ast`` for an
 import of either (at the top or inside a function) and for a string that
 runs one with ``-m`` or ``-c``. At run time: a fresh process imports every
 module of the port, runs its ``make_list`` on a small FASTA and its
-gassembler CLI on a small KATK fixture, both on the CPU, and then finds
-neither package in ``sys.modules``. The read index of the fixture is the
+gassembler CLI on a small KATK fixture, its glistmaker CLI (``.list`` and
+``--index``) and its glistcompare CLI (two sources and three), all on the
+CPU, and then finds neither package in ``sys.modules``. Subprocesses check
+that the argument errors of both list CLIs and glistcompare's numpy-free
+fast paths import no torch. The read index of the fixture is the
 one set-up step that runs the JAX package (its ``gmer_counter
 --compile_index`` host route, in a subprocess of its own)."""
 
@@ -126,6 +129,18 @@ out, err = io.StringIO(), io.StringIO()
 os.chdir(sys.argv[4])
 with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
     rc = main(kf.ARGS, device="cpu")
+from genometester4_tpu_torch.cli.glistcompare import main as glistcompare
+from genometester4_tpu_torch.cli.glistmaker import main as glistmaker
+fa = sys.argv[2]
+with contextlib.redirect_stdout(io.StringIO()), \
+        contextlib.redirect_stderr(io.StringIO()):
+    rcs = [glistmaker([fa, "-w", "11", "-o", "a"], device="cpu"),
+           glistmaker([fa, "-w", "11", "-o", "b", "--index"], device="cpu"),
+           glistcompare(["a_11.list", "b_11.index", "-u", "-i", "-d"],
+                        device="cpu"),
+           glistcompare(["a_11.list", "a_11.list", "b_11.index", "-u"],
+                        device="cpu")]
+rc = rc or any(rcs) or not os.path.exists("out_11_union.list")
 mods = sorted(m for m in sys.modules
               if m.split(".")[0] in ("genometester4_tpu", "jax", "jaxlib"))
 print(json.dumps({"n_words": hdr.n_words, "rc": rc,
@@ -134,9 +149,9 @@ print(json.dumps({"n_words": hdr.n_words, "rc": rc,
 
 
 def test_port_runs_without_the_jax_package(tmp_path):
-    """Every module imported, make_list and the gassembler CLI run on the
-    CPU in a fresh process: no module of jax or of the JAX package is
-    loaded at the end."""
+    """Every module imported, make_list, the gassembler CLI and both list
+    CLIs run on the CPU in a fresh process: no module of jax or of the JAX
+    package is loaded at the end."""
     from chip_smoke import reference_cli
     from genometester4_tpu_torch.tools import katk_fixture as kf
     rng = np.random.default_rng(12)
@@ -178,3 +193,59 @@ def test_each_module_imports_alone(module):
                        env={**os.environ, "PYTHONPATH": str(REPO)})
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"
+
+
+_NO_TORCH = r'''
+import contextlib, io, json, sys
+from genometester4_tpu_torch.cli.glistcompare import main as glistcompare
+from genometester4_tpu_torch.cli.glistmaker import main as glistmaker
+runs = json.loads(sys.argv[1])
+rcs = []
+for tool, argv in runs:
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rcs.append((glistmaker if tool == "m" else glistcompare)(argv))
+print(json.dumps({"rcs": rcs, "torch": "torch" in sys.modules}))
+'''
+
+
+def test_list_clis_import_torch_only_on_a_device_route(tmp_path):
+    """-h, -v, a bad flag and every argument error of glistmaker, and
+    glistcompare's chrome, -ss and N-list union on plain .lists (its
+    numpy-free fast paths), run in one fresh process without importing
+    torch; the files the fast paths write are there."""
+    from genometester4_tpu_torch.formats.list_format import write_list
+    rng = np.random.default_rng(4)
+    lists = []
+    for i in range(3):
+        w = np.unique(rng.integers(0, 1 << 20, 500).astype(np.uint64))
+        write_list(str(tmp_path / f"l{i}.list"), 10, w,
+                   rng.integers(1, 5, len(w)).astype(np.uint32))
+        lists.append(str(tmp_path / f"l{i}.list"))
+    fa = tmp_path / "in.fa"
+    fa.write_text(">a\nACGTACGTTGCA\n")
+    runs = [("m", a) for a in (
+        ["-h"], ["-v"], ["--bogus"], [], [str(fa), "-w", "0"],
+        [str(fa), "-w", "40"], [str(fa), "-w", "x"],
+        [str(fa), "-w", "9", "-c", "0"], [str(fa), "-w", "9", "-c", "5",
+                                          "--max", "3"],
+        [str(fa), "-w", "9", "-o", "o" * 201], ["missing.fa", "-w", "9"],
+        [str(fa), "-w"])]
+    runs += [("c", a) for a in (
+        ["-h"], [], ["--bogus"], [lists[0]], [lists[0], lists[1], "-r",
+                                              "min", "-u"],
+        [lists[0], "-ss", "rand_unique", "50", "--seed", "3", "-o",
+         str(tmp_path / "s")],
+        lists + ["-u", "-i", "-o", str(tmp_path / "m")])]
+    r = subprocess.run([sys.executable, "-c", _NO_TORCH, json.dumps(runs)],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=str(tmp_path),
+                       env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.splitlines()[-1])
+    assert got["torch"] is False
+    assert got["rcs"][:2] == [0, 0] and all(got["rcs"][2:12])
+    assert got["rcs"][12:] == [0, 1, 1, 1, 1, 0, 0]
+    assert (tmp_path / "s_subset_10.list").stat().st_size > 48
+    assert (tmp_path / "m_10_union.list").stat().st_size > 48
+    assert (tmp_path / "m_10_intrsec.list").exists()
