@@ -71,7 +71,12 @@ Run from the repository root. Phases, each of which must pass:
            of 64 regions; equal to kernel C's entry on the same input.
 6. kernels each CUDA kernel against its plain PyTorch version on the card
            at the shapes of its path (kernel A also on codes 1 byte past a
-           16-byte boundary; kernels C and D also on reads of 2,000 columns
+           16-byte boundary; kernel B at k = 25 and 32, unit and u32
+           weights, also at n = 2^25 - 12,345, on keys 8 bytes past a
+           16-byte boundary and on its edge streams: n = 0, every slot
+           invalid, one word over 2^25 slots, 2^25 - 1 distinct keys, runs
+           ending on a tile edge and one past it; kernels C and D also on
+           reads of 2,000 columns
            and where gap lengths wrap as int8; kernel E also at L = 1, at
            tied keys with 2L below its tile, at L equal to its tile, at an
            odd L and on keys 8 bytes past a 16-byte boundary): equal bits
@@ -80,9 +85,11 @@ Run from the repository root. Phases, each of which must pass:
            each kernel's bound (the larger of its bytes over 3.35 TB/s and
            its integer operations over 16.7 T op/s, from this run's
            inputs) and, for kernels B and E, the one PyTorch call that
-           computes the same function (B with count_chunk's compaction:
-           torch.unique_consecutive with counts, equal results required;
-           E: a stable segmented torch.sort). Also timed:
+           computes the same function (B, with its one host sync:
+           torch.unique_consecutive with counts, in turns, equal results
+           required; E: a stable segmented torch.sort). Kernel B's host
+           syncs in count_unique are counted (set_sync_debug_mode): exactly
+           one is required. Also timed:
            kernel A at the mesh route's chunk (2^23), kernel E's partition
            and tile passes (torch.profiler) and one whole mesh merge round
            (merge_sorted_runs with its sortedness check and gather).
@@ -229,7 +236,9 @@ def oracle_list(path: str, bases: np.ndarray, k: int) -> int:
 
 # -------------------------------------------------------------- timing
 
-def median_ms(torch, fn, reps: int) -> float:
+def median_ms(torch, fn, reps: int, samples: bool = False):
+    """Median ms of ``reps`` calls, each alone between two events (with
+    ``samples``: the list of times)."""
     fn()  # warm-up
     times = []
     for _ in range(reps):
@@ -240,7 +249,7 @@ def median_ms(torch, fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times if samples else statistics.median(times)
 
 
 def batch_ms(torch, fn, count: int = 20) -> float:
@@ -280,11 +289,8 @@ def max_abs_err(torch, got, want) -> int:
 # ------------------------------------------------------------- phases
 
 def phase_kernels(torch, seed: int) -> dict:
-    from genometester4_tpu_torch.ops.encode import SIGN, flag_key
     from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
     from genometester4_tpu_torch.ops.kmers import extract_kmers
-    from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
-    from genometester4_tpu_torch.ops.sortcount import run_marks
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -338,8 +344,83 @@ def phase_kernels(torch, seed: int) -> dict:
         f"{bms:.4f} ms ({by})")
     res["extract"][0] = err_a
 
+    res["run_marks"] = phase_run_encode(torch, seed)
+    count_syncs_check(torch, codes)
+    return res
+
+
+def encode_err(torch, got, want) -> int:
+    """Largest difference between two run encodings (unique keys, counts,
+    n_unique, total, checksum); 0 when equal."""
+    err = max(max_abs_err(torch, got[0], want[0]),
+              max_abs_err(torch, got[1], want[1]))
+    return max([err] + [abs(a - b) for a, b in zip(got[2:], want[2:])])
+
+
+def run_encode_bound(n_valid: int, n_unique: int, weighted: bool):
+    """Kernel B's bound: each valid key (and weight) read once, each run's
+    key and count written once, the 12 bytes of stats."""
+    return bound("run_marks", n_valid * (16 if weighted else 8)
+                 + n_unique * 16 + 12, n_valid)
+
+
+def run_edge_streams(torch, gen, k: int):
+    """Kernel B's edge streams at k (word bits 2k; k = 32 has no invalid
+    key): (name, sorted keys) on the card."""
+    from genometester4_tpu_torch.ops import _build
+    from genometester4_tpu_torch.ops.encode import SIGN, flag_key
+
+    dev = torch.device("cuda")
+    bits = 2 * k
+    tile = _build.load_library().gt4_run_encode_tile()
+
+    def runs(lengths):   # distinct random keys, repeated run by run
+        lengths = torch.as_tensor(lengths, device=dev)
+        m = lengths.numel()
+        hi = torch.randint(0, 1 << (bits - 32), (2 * m,), generator=gen,
+                           device=dev)
+        lo = torch.randint(0, 1 << 32, (2 * m,), generator=gen, device=dev)
+        keys = torch.unique(((hi << 32) | lo) ^ SIGN)[:m]
+        check(keys.numel() == m, "too few distinct random keys")
+        return torch.repeat_interleave(keys, lengths)
+
+    yield "n = 0", torch.zeros(0, dtype=torch.int64, device=dev)
+    if k < 32:
+        yield "every slot invalid", torch.full((3 * tile + 5,),
+                                               flag_key(bits), device=dev)
+    yield "one word over all 2^25 slots", runs([N_KERNEL])
+    yield "every key distinct, 2^25 - 1", runs(
+        torch.ones(N_KERNEL - 1, dtype=torch.int64, device=dev))
+    yield ("runs ending on a tile edge and one past it",
+           runs([tile, tile + 1, tile - 1, 1, 2 * tile - 1, 1, tile, 3,
+                 tile - 3] * 50))
+
+
+def phase_run_encode(torch, seed: int) -> list:
+    """Kernel B against ``run_encode`` on the card, bit for bit: at k = 25
+    and 32, unit and random u32 weights (sums wrap past 2^32), on 2^25
+    sorted keys with ~30% repeats (k = 25: a 10% invalid tail), on their
+    first 2^25 - 12,345 (n not a multiple of the tile), on the same keys 8
+    bytes past a 16-byte boundary, and on the edge streams. Times the 2^25
+    shapes against their bounds. Returns [max abs err, ms, plain ms, bound
+    ms, bound by, library ms] at k = 25 with unit weights."""
+    from genometester4_tpu_torch.ops.encode import SIGN, flag_key
+    from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
+    from genometester4_tpu_torch.ops.sortcount import run_encode
+
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    err_b = 0
+    out = None
+
+    def compare(name, keys, weights, bits):
+        got = run_encode_cuda(keys, weights, bits)
+        want = run_encode(keys, weights, bits)
+        torch.cuda.synchronize()
+        err = encode_err(torch, got, want)
+        check(err == 0, f"run encode kernel != plain on {name} "
+                        f"(max abs err {err})")
+        return got
+
     for k in (K, 32):
         bits = 2 * k
         hi = torch.randint(0, 1 << max(bits - 32, 0), (N_KERNEL,),
@@ -353,84 +434,137 @@ def phase_kernels(torch, seed: int) -> dict:
         idx = torch.where(dup & (idx > 0), idx - 1, idx)
         keys = torch.sort(words[idx] ^ SIGN).values
         if k < 32:   # invalid tail: flagged keys, as extraction makes them
-            n_valid = int(N_KERNEL * 0.9)
-            keys[n_valid:] = flag_key(bits)
-        else:        # k = 32 streams are compacted before the sort
-            n_valid = N_KERNEL
-        h, t, s = run_marks_cuda(keys, n_valid)
-        ph, pt, ps = run_marks(keys, n_valid)
-        torch.cuda.synchronize()
-        err = max(max_abs_err(torch, h, ph), max_abs_err(torch, t, pt),
-                  max_abs_err(torch, s, ps))
-        check(err == 0, f"run marks kernel != plain at k={k} "
-                        f"(max abs err {err})")
-        err_b = max(err_b, err)
-        ms = median_ms(torch, lambda: run_marks_cuda(keys, n_valid), 20)
-        pms = median_ms(torch, lambda: run_marks(keys, n_valid), 5)
-        n_unique, total, chk = (int(v) for v in s.cpu())
-        log(f"kernel run_marks k={k} n=2^25 n_valid={n_valid} "
-            f"n_unique={n_unique} checksum={chk & 0xFFFFFFFF}: "
-            f"{ms:.4f} ms   plain {pms:.4f} ms   equal bits")
-        if k == K:   # keys in; head, tail masks and 3 scalars out
-            res["run_marks"] = [0, ms, pms, *bound(
-                "run_marks", 10 * N_KERNEL + 12, N_KERNEL),
-                run_marks_library_ms(torch, keys, n_valid)]
-    res["run_marks"][0] = err_b
-    return res
+            keys[int(N_KERNEL * 0.9):] = flag_key(bits)
+        del hi, lo, words, dup, idx
+        weights = torch.randint(0, 1 << 32, (N_KERNEL,), generator=gen,
+                                device=dev)
+        for w in (None, weights):
+            mode = "unit" if w is None else "weighted"
+            got = compare(f"k={k} {mode} n=2^25", keys, w, bits)
+            n_unique, total, chk = got[2:]
+            ms = median_ms(torch, lambda: run_encode_cuda(keys, w, bits), 20)
+            pms = median_ms(torch, lambda: run_encode(keys, w, bits), 5)
+            kms = device_ms(torch, lambda: run_encode_cuda(keys, w, bits),
+                            ["run_encode_kernel"])["run_encode_kernel"]
+            bms, by = run_encode_bound(total, n_unique, w is not None)
+            log(f"kernel run_marks (run encode) k={k} {mode} n=2^25 "
+                f"n_valid={total} n_unique={n_unique} checksum={chk}: "
+                f"{ms:.4f} ms per call with its one sync (kernel alone "
+                f"{kms:.4f} ms, torch.profiler)   plain {pms:.4f} ms   bound "
+                f"{bms:.4f} ms ({by})   equal bits")
+            if k == K and w is None:
+                lms, tms = run_marks_library_ms(torch, keys, bits)
+                out = [0, tms, pms, bms, by, lms]
+            for name, sub in (
+                    ("n = 2^25 - 12,345", slice(0, N_KERNEL - 12_345)),
+                    ("keys 8 bytes past a 16-byte boundary", slice(1, None))):
+                ks = keys[sub]
+                check(sub.start == 0 or ks.data_ptr() % 16 == 8,
+                      "keys are 16-byte aligned")
+                compare(f"k={k} {mode} {name}", ks,
+                        None if w is None else w[sub], bits)
+        del keys, weights
+        for name, keys in run_edge_streams(torch, gen, k):
+            weights = torch.randint(0, 1 << 32, keys.shape, generator=gen,
+                                    device=dev)
+            for w in (None, weights):
+                got = compare(f"k={k} {name}", keys, w, bits)
+            log(f"kernel run_marks (run encode) k={k} {name}: "
+                f"n={keys.numel()} n_unique={got[2]} total={got[3]}, unit "
+                f"and weighted equal bits")
+    log(f"kernel run_marks (run encode): equal bits at k={K} and 32, unit "
+        f"and weighted, on n = 2^25, 2^25 - 12,345, keys 8 bytes past a "
+        f"16-byte boundary and every edge stream")
+    return out
 
 
-def run_marks_library_ms(torch, keys, n_valid: int) -> float:
-    """Kernel B and ``count_chunk``'s compaction (``listmaker.py:89-93``:
-    words at the run heads, counts from the tails' positions) against the
-    one PyTorch call that computes the same unique words and counts,
-    ``torch.unique_consecutive(return_counts=True)``, on the same sorted
-    keys: equal results required. Returns the call's ms."""
-    from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
-
-    valid = keys[:n_valid]
+def run_marks_library_ms(torch, keys, bits: int):
+    """Kernel B from sorted keys to the unique keys and counts on the card,
+    its one sync included, against the one PyTorch call that computes the
+    same, ``torch.unique_consecutive(return_counts=True)`` on the valid
+    keys: equal results required. Timed in turns (B, library, library, B),
+    30 calls each. Returns (library ms, kernel B ms), each the median of
+    its 60 calls."""
+    from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
 
     def kernel_b():
-        head, tail, _ = run_marks_cuda(keys, n_valid)
-        tails = torch.nonzero(tail).flatten()
-        return keys[head], torch.diff(tails + 1,
-                                      prepend=tails.new_zeros(1))
+        return run_encode_cuda(keys, None, bits)[:2]
+
+    n_valid = run_encode_cuda(keys, None, bits)[3]
+    valid = keys[:n_valid]
 
     def library():
         return torch.unique_consecutive(valid, return_counts=True)
 
     (w1, c1), (w2, c2) = kernel_b(), library()
     check(torch.equal(w1, w2) and torch.equal(c1, c2),
-          "kernel B + compaction != torch.unique_consecutive")
-    bms = median_ms(torch, kernel_b, 20)
-    lms = median_ms(torch, library, 20)
-    log(f"kernel run_marks k={K} n=2^25 n_valid={n_valid}: kernel B + "
-        f"count_chunk's compaction and diff {bms:.4f} ms   library "
-        f"(torch.unique_consecutive, return_counts) {lms:.4f} ms   equal "
-        f"words and counts")
-    return lms
+          "kernel B != torch.unique_consecutive")
+    turns = [(who, median_ms(torch, kernel_b if who == "B" else library, 30,
+                             samples=True))
+             for who in ("B", "library", "library", "B")]
+    ms = {who: statistics.median(sum((t for w, t in turns if w == who), []))
+          for who in ("B", "library")}
+    log(f"kernel run_marks (run encode) k={K} n=2^25 n_valid={n_valid}, in "
+        f"turns of 30 calls, kernel B with its one sync against the library "
+        f"(torch.unique_consecutive, return_counts): " + ", ".join(
+            f"{who} {statistics.median(t):.4f}" for who, t in turns)
+        + f" ms; medians B {ms['B']:.4f}, library {ms['library']:.4f} ms; "
+        f"equal words and counts")
+    return ms["library"], ms["B"]
 
 
-def merge_kernel_split(torch, keys, L):
-    """Device ms of kernel E's two passes (partition, tile) per call, from
-    ``torch.profiler`` over 5 calls."""
+def count_syncs_check(torch, codes) -> None:
+    """Host syncs of ``count_unique`` on one 2^25-code chunk's keys at
+    k = K, counted under ``torch.cuda.set_sync_debug_mode("warn")``: it
+    must be exactly one (kernel B's read of its stats). Also logs the
+    count of the whole ``count_chunk``."""
+    import warnings
+
+    from genometester4_tpu_torch.ops.kmers import extract_kmers_best
+    from genometester4_tpu_torch.ops.sortcount import count_unique
+    from genometester4_tpu_torch.pipelines.listmaker import count_chunk
+
+    keys, _ = extract_kmers_best(codes, K)
+    torch.cuda.synchronize()
+    syncs = {}
+    for name, fn in (
+            ("count_unique", lambda: count_unique(keys, word_bits=2 * K)),
+            ("count_chunk", lambda: count_chunk(codes, K))):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs[name] = sum("called a synchronizing CUDA operation"
+                          in str(w.message) for w in caught)
+        torch.cuda.synchronize()
+    log(f"host syncs at k={K} on one 2^25-code chunk "
+        f"(set_sync_debug_mode warnings): {syncs}")
+    check(syncs["count_unique"] == 1,
+          f"count_unique made {syncs['count_unique']} host syncs, not 1")
+
+
+def device_ms(torch, fn, names, reps: int = 5) -> dict:
+    """Device ms per call of the kernels whose names contain each of
+    ``names``, from ``torch.profiler`` over ``reps`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            merge_runs_cuda(keys, L)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    us = {"partition": 0.0, "tile": 0.0}
+    us = dict.fromkeys(names, 0.0)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        for part in us:
-            if f"merge_{part}_kernel" in e.name:
-                us[part] += e.time_range.elapsed_us()
-    return {part: v / 5e3 for part, v in us.items()}
+        for name in names:
+            if name in e.name:
+                us[name] += e.time_range.elapsed_us()
+    return {name: v / (reps * 1e3) for name, v in us.items()}
 
 
 def phase_merge_kernel(torch, seed: int) -> list:
@@ -486,7 +620,8 @@ def phase_merge_kernel(torch, seed: int) -> list:
             f"int64 payload)")
         if out is None:
             out = [err, ms, pms, bms, by, lms]
-            split = merge_kernel_split(torch, keys, L)
+            split = device_ms(torch, lambda: merge_runs_cuda(keys, L),
+                              ["merge_partition_kernel", "merge_tile_kernel"])
             counts = torch.randint(0, 1 << 31, (n,), generator=gen,
                                    device=dev)
             rms = median_ms(torch, lambda: merge_sorted_runs(
@@ -494,7 +629,8 @@ def phase_merge_kernel(torch, seed: int) -> list:
             log(f"kernel merge_runs {name}: "
                 f"{batch_ms(torch, lambda: merge_runs_cuda(keys, L)):.4f} ms "
                 f"per call, 20 back to back; partition pass "
-                f"{split['partition']:.4f} ms + tile pass {split['tile']:.4f} "
+                f"{split['merge_partition_kernel']:.4f} ms + tile pass "
+                f"{split['merge_tile_kernel']:.4f} "
                 f"ms (torch.profiler); one mesh merge round "
                 f"merge_sorted_runs((keys, counts), L) {rms:.4f} ms "
                 f"(sortedness check with its host sync, kernel E, the "
@@ -531,10 +667,10 @@ def phase_mesh(torch, fa: str, tmp: str, single: str, single_wall: float):
     launches of the bitonic run."""
     from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
     from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
-    from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
+    from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
     from genometester4_tpu_torch.pipelines.listmaker import make_list
 
-    counters = {"extract": extract_kmers_cuda, "run_marks": run_marks_cuda,
+    counters = {"extract": extract_kmers_cuda, "run_marks": run_encode_cuda,
                 "merge_runs": merge_runs_cuda}
     runs = {}
     for mode in ("resort", "bitonic"):
@@ -813,7 +949,7 @@ def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
     kernel A's and B's launches in 4c.a and A's in 4c.b's first card
     run."""
     from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
-    from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
+    from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
     from genometester4_tpu_torch.pipelines import listcompare, listmaker
 
     jd, pd = os.path.join(tmp, "glist_jax"), os.path.join(tmp, "glist_port")
@@ -828,11 +964,11 @@ def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
         want, ref_wall = _glist_reference(jd, "glistmaker", args,
                                           "GT4_TPU_COUNT_IMPL")
         extract_kmers_cuda.launches = 0
-        run_marks_cuda.launches = 0
+        run_encode_cuda.launches = 0
         torch.cuda.reset_peak_memory_stats()
         rc, o, e, wall = _port_glistmaker(torch, pd, args, True)
         la = {"extract": extract_kmers_cuda.launches,
-              "run_marks": run_marks_cuda.launches}
+              "run_marks": run_encode_cuda.launches}
         mine = os.path.join(pd, f"{name}_{K}.list")
         ref = os.path.join(jd, f"{name}_{K}.list")
         _check_same_run(f"port glistmaker {name}", (rc, o, e), want,
@@ -1331,7 +1467,7 @@ def run(args) -> None:
         from genometester4_tpu_torch.ops import _build
         from genometester4_tpu_torch.ops.extract_cuda import \
             extract_kmers_cuda
-        from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
+        from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
         from genometester4_tpu_torch.pipelines.listmaker import make_list
     except ImportError as e:
         raise SmokeFailure(f"the port is not importable next to this "
@@ -1369,7 +1505,7 @@ def run(args) -> None:
             f"{time.perf_counter() - t0:.2f} s")
         out = os.path.join(tmp, f"port_{K}.list")
         extract_kmers_cuda.launches = 0
-        run_marks_cuda.launches = 0
+        run_encode_cuda.launches = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1377,7 +1513,7 @@ def run(args) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"extract": extract_kmers_cuda.launches,
-                    "run_marks": run_marks_cuda.launches}
+                    "run_marks": run_encode_cuda.launches}
         log(f"main path: make_list {GENOME_BP} bp seed {args.seed} k={K} "
             f"wall {wall:.3f} s, {hdr.total_count} k-mers ({hdr.total_count / wall / 1e6:.2f} "
             f"M k-mers/s), {hdr.n_words} distinct, peak device memory "

@@ -35,9 +35,12 @@ _SIGNATURES = {
     # codes, keys, valid, n, k, canonical, stream
     "gt4_extract": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, _P],
-    # keys, head, tail, stats, n, n_valid, stream
-    "gt4_run_marks": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-                      _P],
+    # keys, weights, out (run keys, counts, stats, status), n, limit,
+    # has limit, device, stream
+    "gt4_run_encode": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, _P],
+    # kernel B's keys per tile (one status word each)
+    "gt4_run_encode_tile": [],
     # refs, reads, nvec, score, sx, sy, scratch, B, n, m, stream
     "gt4_sw_lanes": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, _P],

@@ -1,16 +1,18 @@
-"""Sort + run counting (port of ``genometester4_tpu/ops/sortcount.py``,
-``count_unique(compact=False)`` in both weight modes).
+"""Sort + run counting (port of ``genometester4_tpu/ops/sortcount.py``:
+``count_unique(compact=True)`` in both weight modes, and ``sort_compact``).
 
 The JAX package sorts flag-packed ``(hi, lo)`` pairs with XLA's
-``lax.sort`` and marks runs with element-wise neighbour compares. Here the
-sort is ``torch.sort`` on int64 keys (``ops.encode``) and the marks come
-from kernel B (``ops.runmarks_cuda``) on a CUDA tensor, or from its plain
-version ``run_marks`` below on a CPU tensor.
+``lax.sort``, marks runs with element-wise neighbour compares and compacts
+them with a second sort. Here the sort is ``torch.sort`` on int64 keys
+(``ops.encode``), and one pass turns the sorted keys into the unique keys
+and their counts: kernel B (``ops.runmarks_cuda.run_encode_cuda``, one
+host sync) on a CUDA tensor, its plain version ``run_encode`` below on a
+CPU tensor. ``run_marks`` keeps the marks of the TPU kernel, from which
+``run_encode`` is defined.
 
-``sort_compact`` (gmer_counter's index mode) is an order-preserving
-``torch.nonzero`` compaction. ``compact=True`` and ``filter_counts`` are
-not ported yet: the port's pipelines compact on the device with boolean
-indexing.
+``sort_compact`` (gmer_counter's index mode, glistcompare) is an
+order-preserving ``torch.nonzero`` compaction. ``filter_counts`` is not
+ported: the port's pipelines cut counts on the host.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch
 from genometester4_tpu_torch.ops.encode import SIGN, flag_key
 
 _U32 = 0xFFFFFFFF
+# kernel B's largest stream (JAX's int32 positions)
+MAX_RUN_KEYS = (1 << 31) - 1
 
 
 def sort_compact(mask: torch.Tensor, *arrays: torch.Tensor):
@@ -34,7 +38,8 @@ def sort_compact(mask: torch.Tensor, *arrays: torch.Tensor):
 
 
 def run_marks(keys: torch.Tensor, n_valid: int):
-    """Plain PyTorch version of kernel B.
+    """The run marks of the TPU kernel (``runmarks_pallas.py``), which
+    ``run_encode`` compacts.
 
     Sorted keys int64[n] whose first ``n_valid`` are valid ->
     (head bool[n], tail bool[n], stats int32[3]) with
@@ -67,9 +72,39 @@ def run_marks(keys: torch.Tensor, n_valid: int):
     return head, tail, stats.to(torch.int32)  # int64 -> int32 keeps the bits
 
 
+def run_encode(keys: torch.Tensor, weights: torch.Tensor | None = None,
+               word_bits: int = 64):
+    """Plain PyTorch version of kernel B: sorted keys int64[n], optional
+    weights int64[n] -> (unique keys int64[n_unique], counts
+    int64[n_unique], n_unique, total, checksum).
+
+    A key at or above ``flag_key(word_bits)`` is invalid (none with
+    ``word_bits = 64``); the invalid keys of a sorted stream are its tail.
+    The runs are those of ``run_marks`` over the valid prefix: each run's
+    key in order, its count the summed weight mod 2^32 (its length without
+    weights), and ``run_marks``' stats as ints, the checksum in
+    [0, 2^32).
+    """
+    n = keys.numel()
+    if n > MAX_RUN_KEYS:
+        raise ValueError(f"run_encode takes at most {MAX_RUN_KEYS} keys, "
+                         f"got {n}")
+    n_valid = (n if word_bits >= 64
+               else int(torch.searchsorted(keys, flag_key(word_bits))))
+    _, tail, stats = run_marks(keys, n_valid)
+    tails = torch.nonzero(tail).flatten()
+    # the runs tile the valid prefix: a count is the difference of the
+    # inclusive prefix (of positions, or of weights) at consecutive tails
+    ends = tails + 1 if weights is None else torch.cumsum(weights, 0)[tails]
+    counts = torch.diff(ends, prepend=ends.new_zeros(1)) & _U32
+    n_unique, total, checksum = stats.tolist()
+    return keys[tails], counts, n_unique, total, checksum & _U32
+
+
 def count_unique(keys: torch.Tensor, weights: torch.Tensor | None = None,
                  word_bits: int = 64):
-    """Dedupe-and-count over unsorted keys, as a marked stream.
+    """Dedupe-and-count over unsorted keys: JAX's
+    ``count_unique(compact=True)``.
 
     ``keys`` int64[n]; a key whose word has a bit at or above ``word_bits``
     set is invalid (the flag of ``ops.kmers`` for k <= 31: pass 2k). With
@@ -77,12 +112,10 @@ def count_unique(keys: torch.Tensor, weights: torch.Tensor | None = None,
     per-entry counts (``None``: every valid entry counts 1, the
     ``unit_weights`` mode).
 
-    Returns (skeys, head, tail, incl, n_unique) like the JAX
-    ``count_unique(compact=False)``: the sorted keys, bool masks on the
-    first and last slot of every run of valid keys (the runs tile the
-    stream from slot 0), the inclusive weight prefix mod 2^32 as int64
-    (meaningful at tail slots; ``None`` with unit weights, where counts
-    are differences of tail positions) and the number of runs.
+    Returns (unique keys int64[n_unique] ascending, their counts
+    int64[n_unique] mod 2^32, n_unique): JAX's leading ``n_unique`` slots
+    of (uhi, ulo) and counts. On a CUDA tensor kernel B runs after the
+    sort, and reading n_unique is the only host sync.
     """
     if weights is None:
         skeys = torch.sort(keys).values
@@ -90,13 +123,10 @@ def count_unique(keys: torch.Tensor, weights: torch.Tensor | None = None,
     else:
         skeys, order = torch.sort(keys)
         sw = weights[order]
-    n_valid = (keys.numel() if word_bits >= 64
-               else int(torch.searchsorted(skeys, flag_key(word_bits))))
     if skeys.is_cuda:
-        from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
-        head, tail, stats = run_marks_cuda(skeys, n_valid)
+        from genometester4_tpu_torch.ops.runmarks_cuda import \
+            run_encode_cuda as encode
     else:
-        head, tail, stats = run_marks(skeys, n_valid)
-    n_unique = int(stats[0])
-    incl = None if sw is None else torch.cumsum(sw, 0) & _U32
-    return skeys, head, tail, incl, n_unique
+        encode = run_encode
+    ukeys, counts, n_unique, _, _ = encode(skeys, sw, word_bits)
+    return ukeys, counts, n_unique

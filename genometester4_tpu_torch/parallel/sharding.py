@@ -7,7 +7,8 @@ Row r reads its own input chunks; column j owns the j-th of kp equal
 ranges of the word space (its top log2(kp) bits), so the columns' sorted
 outputs concatenate into one sorted list. Per step (dp * kp chunks)::
 
-  per slot     count_chunk: kernel A, torch.sort, kernel B, compaction
+  per slot     count_chunk: kernel A, torch.sort, kernel B (unique keys
+               and counts)
                _route_by_prefix: kp contiguous slices into [kp, cap] buckets
   exchange     column j takes bucket j of every slot (JAX: all_to_all over
                kp, then all_gather over dp) as tensor moves to the device of
@@ -161,7 +162,8 @@ def merge_gathered_sources(keys, counts, n, *, S: int, S2: int, cap: int,
 
     if mode != "bitonic":
         # compact the sources in forward order (each write's tail is
-        # overwritten by the next source), then a weighted count
+        # overwritten by the next source), then a weighted count (the
+        # sort and kernel B)
         offs = np.concatenate([[0], np.cumsum(n)]).tolist()
         total = offs[S]
         lim = merge_cap - cap
@@ -172,11 +174,8 @@ def merge_gathered_sources(keys, counts, n, *, S: int, S2: int, cap: int,
             mk[o:o + cap] = keys[s]
             mc[o:o + cap] = counts[s]
         m = min(total, merge_cap)
-        skeys, head, tail, incl, n_uniq = count_unique(mk[:m], mc[:m])
-        tp = incl[torch.nonzero(tail).flatten()]
-        uc = torch.diff(tp, prepend=tp.new_zeros(1)) & _U32
-        return (*_pad_out(skeys[head], uc, n_uniq, merge_cap), n_uniq,
-                total > lim)
+        uk, uc, n_uniq = count_unique(mk[:m], mc[:m])
+        return (*_pad_out(uk, uc, n_uniq, merge_cap), n_uniq, total > lim)
 
     # sentinel tails with count 0, padded to S2 runs of cap2, then
     # log2(S2) rounds of pairwise merges

@@ -7,8 +7,7 @@ Port of the device branch of ``genometester4_tpu/pipelines/listmaker.py``
   -> 2^25-base code chunks         pad_pow2_chunk
   -> extract + canonicalize        kernel A (ops.extract_cuda)
   -> sort int64 keys               torch.sort
-  -> run head/tail marks           kernel B (ops.runmarks_cuda)
-  -> compact on the device         keys[head], counts from nonzero(tail)
+  -> unique keys and counts        kernel B (ops.runmarks_cuda), one sync
   -> host prefix-bucketed merge    weighted count_unique per bucket
   -> ListWriter                    formats.list_format
 
@@ -77,11 +76,6 @@ def pad_pow2_chunk(chunk: np.ndarray, cap_limit: int) -> np.ndarray:
     return chunk
 
 
-def _compact(skeys, head, tail):
-    """Run words and tail positions of a marked stream, on the device."""
-    return skeys[head], torch.nonzero(tail).flatten()
-
-
 def to_host_counts(counts: torch.Tensor) -> np.ndarray:
     """int64 counts below 2^32 (any device) -> host u32."""
     # the int32 cast keeps their bits and halves the copy
@@ -90,16 +84,13 @@ def to_host_counts(counts: torch.Tensor) -> np.ndarray:
 
 def count_chunk(codes: torch.Tensor, k: int, canonical: bool = True):
     """One chunk's sorted unique keys and their counts (both int64), on
-    the device of ``codes`` (uint8, 255 = invalid): kernel A, the sort,
-    kernel B and the compaction."""
+    the device of ``codes`` (uint8, 255 = invalid): kernel A, the sort and
+    kernel B."""
     keys, valid = extract_kmers_best(codes, k, canonical)
     if valid is not None:   # k = 32: no flag bit, drop invalid keys
         keys = keys[valid]
-    skeys, head, tail, _, _ = count_unique(keys, word_bits=2 * k)
-    words, tails = _compact(skeys, head, tail)
-    # unit weights: a run's count is the distance between its tail and the
-    # previous run's tail
-    return words, torch.diff(tails + 1, prepend=tails.new_zeros(1))
+    words, counts, _ = count_unique(keys, word_bits=2 * k)
+    return words, counts
 
 
 def count_chunks(codes: np.ndarray, k: int,
@@ -166,10 +157,7 @@ def merge_sorted_shards(shards, target_bucket: int = DEFAULT_MERGE_BUCKET,
         keys = keys_from_u64(np.concatenate(parts_w)).to(dev)
         weights = torch.from_numpy(
             np.concatenate(parts_c).astype(np.int64)).to(dev)
-        skeys, head, tail, incl, _ = count_unique(keys, weights)
-        words, tails = _compact(skeys, head, tail)
-        tp = incl[tails]
-        counts = torch.diff(tp, prepend=tp.new_zeros(1)) & 0xFFFFFFFF
+        words, counts, _ = count_unique(keys, weights)
         yield u64_from_keys(words), to_host_counts(counts)
 
 

@@ -18,8 +18,8 @@ from genometester4_tpu_torch.ops.kmers import extract_kmers
 from genometester4_tpu_torch.ops.merge_runs import (merge_runs,
                                                     merge_sorted_runs)
 from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
-from genometester4_tpu_torch.ops.runmarks_cuda import run_marks_cuda
-from genometester4_tpu_torch.ops.sortcount import count_unique, run_marks
+from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
+from genometester4_tpu_torch.ops.sortcount import count_unique, run_encode
 from genometester4_tpu_torch.ops.swalign import sw_fill
 from genometester4_tpu_torch.ops.swalign_cuda import (
     sw_fill_lanes_cuda, sw_fill_shared_cuda, sw_matrices_batch_device,
@@ -81,21 +81,70 @@ def test_extract_kernel_tile_edges_and_unaligned_codes(cuda, k):
                     assert torch.equal(valid_c, valid_p), (n, off)
 
 
-@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 1_000_003])
-def test_run_marks_kernel_equals_plain(cuda, n):
-    rng = np.random.default_rng(n)
-    words = np.sort(rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64,
+RUN_TILE = 4096   # keys per tile of kernel B (csrc/runmarks.cu)
+
+
+def _run_stream(kind, word_bits, seed):
+    """Sorted keys (CPU) of one of kernel B's edge streams."""
+    rng = np.random.default_rng(seed)
+    T = RUN_TILE
+
+    def runs(lengths):
+        words = np.unique(rng.integers(0, 2 ** word_bits - 1,
+                                       size=2 * len(lengths),
+                                       dtype=np.uint64, endpoint=True))
+        return tenc.keys_from_u64(np.repeat(words[:len(lengths)], lengths))
+
+    if kind == "empty":
+        return torch.zeros(0, dtype=torch.int64)
+    if kind == "every slot invalid":
+        return torch.full((3 * T + 5,), tenc.flag_key(word_bits))
+    if kind == "one word over 2^25":
+        return runs([1 << 25])
+    if kind == "every key distinct":
+        return runs(np.ones(5 * T + 7, np.int64))
+    if kind == "runs ending on and past tile edges":
+        return runs([T, T + 1, T - 1, 1, 2 * T - 1, 1, T, 3, T - 3] * 3)
+    # "random" (n not a multiple of the tile): ~30% repeats, 10% invalid
+    n = 1_000_003
+    words = np.sort(rng.integers(0, 2 ** word_bits - 1, n, dtype=np.uint64,
                                  endpoint=True))
     dup = rng.random(n) < 0.3
     words[dup] = words[np.maximum(np.flatnonzero(dup) - 1, 0)]
     keys = tenc.keys_from_u64(np.sort(words))
-    for n_valid in sorted({0, 1, n // 2, n - 1, n}):
-        h_c, t_c, s_c = run_marks_cuda(keys.to(cuda), n_valid)
-        h_p, t_p, s_p = run_marks(keys, n_valid)
-        torch.cuda.synchronize()
-        assert torch.equal(h_c.cpu(), h_p)
-        assert torch.equal(t_c.cpu(), t_p)
-        assert torch.equal(s_c.cpu(), s_p)
+    if word_bits < 64:
+        keys[int(n * 0.9):] = tenc.flag_key(word_bits)
+    return keys
+
+
+RUN_KINDS = ["random", "empty", "every slot invalid", "one word over 2^25",
+             "every key distinct", "runs ending on and past tile edges",
+             "keys 8 bytes past 16"]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("kind,word_bits", [
+    (kind, bits) for kind in RUN_KINDS for bits in (50, 64)
+    if (kind, bits) != ("every slot invalid", 64)])   # 64 bits: none is
+def test_run_marks_kernel_equals_plain(cuda, kind, word_bits, weighted):
+    """Kernel B equals run_encode bit for bit: unique keys, counts (u32
+    weights that wrap), n_unique, total and checksum."""
+    keys = _run_stream("random" if kind.startswith("keys 8") else kind,
+                       word_bits, RUN_KINDS.index(kind)).to(cuda)
+    if kind.startswith("keys 8"):
+        buf = torch.empty(keys.numel() + 1, dtype=torch.int64, device=cuda)
+        buf[1:] = keys
+        keys = buf[1:]
+        assert keys.data_ptr() % 16 == 8
+    w = None
+    if weighted:
+        w = torch.randint(0, 1 << 32, keys.shape, device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(7))
+    got = run_encode_cuda(keys, w, word_bits)
+    want = run_encode(keys, w, word_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2:] == want[2:]
 
 
 @pytest.mark.parametrize("weighted", [False, True])
@@ -108,11 +157,13 @@ def test_count_unique_cuda_equals_cpu(cuda, weighted):
     keys[rng.random(n) < 0.1] = tenc.flag_key(50)
     w = (torch.from_numpy(rng.integers(0, 2 ** 32, n, dtype=np.int64))
          if weighted else None)
+    before = run_encode_cuda.launches
     got = count_unique(keys.to(cuda), None if w is None else w.to(cuda), 50)
     want = count_unique(keys, w, 50)
-    for a, b in zip(got[:4], want[:4]):
-        assert (a is None and b is None) or torch.equal(a.cpu(), b)
-    assert got[4] == want[4]
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert got[2] == want[2]
+    assert run_encode_cuda.launches == before + 1
 
 
 def test_make_list_cuda_equals_cpu(cuda, tmp_path):
@@ -124,7 +175,7 @@ def test_make_list_cuda_equals_cpu(cuda, tmp_path):
     fa.write_bytes(b">a\n" + seq[:30_000].tobytes() + b"\n>b\n"
                    + seq[30_000:].tobytes() + b"\n")
     for k in (16, 25, 32):
-        before = (extract_kmers_cuda.launches, run_marks_cuda.launches)
+        before = (extract_kmers_cuda.launches, run_encode_cuda.launches)
         make_list([str(fa)], k, str(tmp_path / "g.list"), chunk_bases=1 << 14,
                   device="cuda")
         make_list([str(fa)], k, str(tmp_path / "c.list"), chunk_bases=1 << 14,
@@ -132,7 +183,7 @@ def test_make_list_cuda_equals_cpu(cuda, tmp_path):
         assert ((tmp_path / "g.list").read_bytes()
                 == (tmp_path / "c.list").read_bytes())
         assert extract_kmers_cuda.launches > before[0]
-        assert run_marks_cuda.launches > before[1]
+        assert run_encode_cuda.launches > before[1]
 
 
 def test_wrappers_reject_bad_tensors(cuda):
@@ -143,11 +194,18 @@ def test_wrappers_reject_bad_tensors(cuda):
         extract_kmers_cuda(codes.to(torch.int32), 5)
     keys = torch.zeros(64, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        run_marks_cuda(keys[::2], 1)
+        run_encode_cuda(keys[::2])
     with pytest.raises(ValueError, match="int64"):
-        run_marks_cuda(keys.to(torch.int32), 1)
-    with pytest.raises(ValueError, match="n_valid"):
-        run_marks_cuda(keys, 65)
+        run_encode_cuda(keys.to(torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        run_encode_cuda(keys.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        run_encode_cuda(keys, keys[:63])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        run_encode_cuda(keys, keys.cpu())
+    # 2^31 keys (16 GiB, never written): past kernel B's int32 positions
+    with pytest.raises(ValueError, match="at most"):
+        run_encode_cuda(torch.empty(1 << 31, dtype=torch.int64, device=cuda))
 
 
 def _sw_inputs(seed, B, n, m):
@@ -515,7 +573,7 @@ def test_list_clis_cuda_equal_cpu(cuda, tmp_path):
         d.mkdir()
         old = os.getcwd()
         os.chdir(d)
-        before = (extract_kmers_cuda.launches, run_marks_cuda.launches)
+        before = (extract_kmers_cuda.launches, run_encode_cuda.launches)
         outs = []
         try:
             for main, args in runs:
@@ -529,7 +587,7 @@ def test_list_clis_cuda_equal_cpu(cuda, tmp_path):
         files = {p.name: p.read_bytes() for p in d.iterdir()}
         got[device] = (outs, files,
                        (extract_kmers_cuda.launches - before[0],
-                        run_marks_cuda.launches - before[1]))
+                        run_encode_cuda.launches - before[1]))
     assert got["cuda"][:2] == got["cpu"][:2]
     assert all(rc == 0 for rc, _, _ in got["cpu"][0])
     assert len(got["cpu"][1]) == 8
@@ -649,11 +707,11 @@ def test_count_kmers_sharded_cuda_equals_cpu(cuda, monkeypatch, mode):
         count_kmers_sharded, make_mesh)
     monkeypatch.setenv("GT4_TPU_MESH_MERGE", mode)
     codes = _codes(17, 300_000).numpy()
-    before = (extract_kmers_cuda.launches, run_marks_cuda.launches,
+    before = (extract_kmers_cuda.launches, run_encode_cuda.launches,
               merge_runs_cuda.launches)
     got = count_kmers_sharded(codes, 25, make_mesh(
         8, dp=2, devices=["cuda:0"] * 8), chunk_bases=1 << 15)
-    after = (extract_kmers_cuda.launches, run_marks_cuda.launches,
+    after = (extract_kmers_cuda.launches, run_encode_cuda.launches,
              merge_runs_cuda.launches)
     want = count_kmers_sharded(codes, 25, make_mesh(
         8, dp=2, devices=["cpu"] * 8), chunk_bases=1 << 15)
