@@ -49,6 +49,28 @@ Run from the repository root. Phases, each of which must pass:
            stdout, stderr and every file must be identical. Cut to size:
            users compare whole genomes and 30x read sets; 50 Mbp and 2x
            keep the phase in the smoke's limit.
+4d. glistquery  the port's glistquery CLI in this process on CUDA, stdout
+           to files, each against the JAX CLI's host route in a subprocess
+           (stdout, stderr and rc identical): -l of 4c's reads' .list
+           against phase 2's .list and -s of a 5 Mbp slice of 4a's reads
+           (a line a window), each on the card route and the host route
+           (GT4_TPU_LINK=slow) in turns (card, host, host, card), kernel A
+           launching on the -s card route only; --stat, --median,
+           --distribution 1000 and --gc. Walls and peak device memory are
+           printed. Cut to size: users query whole-genome lists; 50 Mbp
+           keeps the phase in the limit.
+4e. gmercaller  the port's gmer_caller CLI in this process on CUDA, stdout
+           to files, against the JAX CLI's host route
+           (GT4_TPU_CALLER_IMPL=host) in subprocesses run beside it:
+           FastGT's chain on 4a's counts (2,000,000 nodes, --model diploid:
+           node names name no chromosome; --runs 1, --training_size
+           20000), the card route and the host route
+           (GT4_TPU_CALLER_IMPL=host); a full-model set (2,000,000
+           autosomal, 100,000 X and 40,000 Y markers from --seed) with
+           --runs 0 --coverage 30 --info --header on both routes, and with
+           --alternatives --prob_cutoff 0.9 on the card route. Then the
+           posterior batch alone on the set's autosomes, card and native in
+           turns, bit-equal, as markers/s beside its bound.
 4. katk    KATK gassembler through the port's CLI on CUDA, over 1,000
            exome-style 200 bp regions (plus one oversized region between
            two regions of more than 200 reads) with 150 bp reads at 40x
@@ -105,13 +127,16 @@ reference.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import cProfile
 import filecmp
 import io
+import itertools
 import json
 import os
 import pstats
+import shutil
 import statistics
 import struct
 import subprocess
@@ -138,6 +163,12 @@ MESH_SLOTS, MESH_DP = 8, 2
 # gmer_counter's count phase: text database nodes (2 K-mers each), reads
 GMER_NODES = 2_000_000
 GMER_READ_BP, GMER_DEPTH, GMER_SUB = 150, 2, 0.002
+GMER_COUNTS = "gmer_counts.txt"   # phase 4a's card-route stdout (4e's input)
+QUERY_SEQ_BP = 5_000_000          # 4d: glistquery -s on this much of 4a's reads
+# 4e: the full-model marker set (autosomal, X, Y) and the chain's training
+CALLER_MARKERS = (2_000_000, 100_000, 40_000)
+CALLER_TRAINING = 20_000
+LINK_BYTES = 64e9   # PCIe 5.0 x16, one direction (the H100 data sheet)
 # H100 SXM: HBM bytes/s, and int32 ops/s outside the tensor cores (132 SMs
 # x 64 int32 lanes x 1.98 GHz boost)
 PEAK_BYTES, PEAK_INT_OPS = 3.35e12, 16.7e12
@@ -850,7 +881,7 @@ def phase_gmercount(torch, path: str, bases: np.ndarray, seed: int) -> int:
     """gmer_counter's count mode through the port's CLI: the card route
     and the port's host route in turns, each against the JAX package's
     host route in a subprocess. Returns kernel A's launches in the first
-    card run."""
+    card run; its stdout stays in ``path``/GMER_COUNTS for phase 4e."""
     from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
 
     t0 = time.perf_counter()
@@ -880,6 +911,8 @@ def phase_gmercount(torch, path: str, bases: np.ndarray, seed: int) -> int:
         n_launch = extract_kmers_cuda.launches
         if launches is None:   # the main path's run
             launches = n_launch
+            with open(os.path.join(path, GMER_COUNTS), "wb") as f:
+                f.write(out)
         walls[route].append(wall)
         log(f"gmercount port {route} route: main() wall {wall:.3f} s "
             f"({windows / wall / 1e6:.2f} M windows/s), peak device memory "
@@ -947,7 +980,7 @@ def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
     """The port's glistmaker and glistcompare CLIs on CUDA (4c.a-4c.d),
     every output against the JAX CLI's host route in a subprocess. Returns
     kernel A's and B's launches in 4c.a and A's in 4c.b's first card
-    run."""
+    run. The reads' .list of 4c.a stays in ``glist_port`` for phase 4d."""
     from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
     from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
     from genometester4_tpu_torch.pipelines import listcompare, listmaker
@@ -1087,18 +1120,353 @@ def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({os.path.getsize(os.path.join(jd, name)) // 12} records); JAX "
         f"host route {ref_wall:.3f} s; union identical")
-    for path in (os.path.join(pd, name), os.path.join(jd, name), ref_index,
-                 reads_list):
+    for path in (os.path.join(pd, name), os.path.join(jd, name), ref_index):
         os.remove(path)
     return out
 
 
-def reference_cli(path: str, module: str, args: list, **env):
+def _port_main_to_file(torch, main, path: str, args: list, env: str, value,
+                       stdout_path: str):
+    """``_port_main`` with stdout sent to the file ``stdout_path`` (whose
+    ``buffer`` takes the native formatter's bytes); returns (rc, stderr
+    bytes, wall s to a synchronize)."""
+    err = io.StringIO()
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        with open(stdout_path, "w") as f:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with environ(env, value), contextlib.redirect_stdout(f), \
+                    contextlib.redirect_stderr(err):
+                rc = main(args, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.chdir(old)
+    return rc, err.getvalue().encode(), wall
+
+
+@contextlib.contextmanager
+def stage_timer(torch, stages: dict, targets):
+    """Within the block, each (owner, attribute, label) of ``targets`` is
+    wrapped so that its calls add their time, to a synchronize, to
+    ``stages[label]``; the attributes are restored after it. Nested
+    targets count in both labels."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in
+             targets]
+
+    def timed(fn, label):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                stages[label] = (stages.get(label, 0.0)
+                                 + time.perf_counter() - t0)
+        return wrapper
+
+    for (owner, name, fn), (_, _, label) in zip(saved, targets):
+        setattr(owner, name, timed(fn, label))
+    try:
+        yield stages
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _stage_text(stages: dict) -> str:
+    return "; ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+
+
+def _check_same_output(what, rc, err, mine, ref):
+    """A port run's rc and stderr equal to the reference's ``ref``
+    (process, wall, stdout file), and its stdout file ``mine``
+    byte-identical to the reference's."""
+    r = ref[0]
+    check(rc == r.returncode, f"{what} exited {rc}, the JAX host route "
+                              f"{r.returncode}: {err.decode()[-1000:]}")
+    check(err == r.stderr, f"{what} stderr differs from the JAX host "
+                           f"route's: {err[-300:]!r} vs {r.stderr[-300:]!r}")
+    check(same_file(mine, ref[2]),
+          f"{what} stdout differs from the JAX host route's")
+
+
+def _references(path: str, module: str, runs: dict, **env) -> dict:
+    """The JAX CLI ``module`` on its host route, one subprocess per entry
+    of ``runs`` (name -> argv), all at once; each stdout to
+    ``ref_<name>.out`` in ``path``. Returns name -> (process, wall,
+    stdout path); each must exit as the port is required to."""
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as ex:
+        jobs = {name: (ex.submit(reference_cli, path, module, args,
+                                 os.path.join(path, f"ref_{name}.out"),
+                                 **env),
+                       os.path.join(path, f"ref_{name}.out"))
+                for name, args in runs.items()}
+        return {name: (*job.result(), out)
+                for name, (job, out) in jobs.items()}
+
+
+def phase_glistquery(torch, tmp: str, genome_list: str, reads_list: str,
+                     reads_fq: str) -> int:
+    """4d: the port's glistquery CLI on CUDA: -l of the reads' list
+    against the genome's and -s of a QUERY_SEQ_BP slice of the reads, the
+    card route and the host route (GT4_TPU_LINK=slow) in turns; --stat,
+    --median, --distribution 1000 and --gc. Every stdout (a file), stderr
+    and rc against the JAX CLI's host route in a subprocess. Returns
+    kernel A's launches in the first -s card run."""
+    from genometester4_tpu_torch.cli.glistquery import main
+    from genometester4_tpu_torch.io import fasta
+    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
+    from genometester4_tpu_torch.pipelines import listquery as lq
+
+    # the card route's split (first card run of each): set-up, the work
+    # on the card (nested: the emits inside -s's count there too), emits
+    targets = [(lq.ListQuery, "_device_table", "table to the card"),
+               (lq.ListQuery, "lookup_device", "lookups (keys up, counts "
+                                               "back)"),
+               (fasta, "load_file", "whole-file parse"),
+               (lq, "_search_fasta_bulk_device", "kernel A, canonical, "
+                                                 "lookups, copies, emits"),
+               (lq, "_emit_records", "native record formatter and write")]
+    qd = os.path.join(tmp, "glistquery")
+    os.makedirs(qd)
+    n_reads = QUERY_SEQ_BP // GMER_READ_BP
+    slice_fq = os.path.join(qd, "reads_slice.fq")
+    with open(reads_fq, "rb") as f, open(slice_fq, "wb") as g:
+        g.writelines(itertools.islice(f, 4 * n_reads))
+    windows = n_reads * (GMER_READ_BP - K + 1)
+    runs = {"l": [genome_list, "-l", reads_list],
+            "s": [genome_list, "-s", slice_fq]}
+    stats = {"stat": ["--stat"], "median": ["--median"],
+             "distribution": ["--distribution", "1000"], "gc": ["--gc"]}
+    t0 = time.perf_counter()
+    refs = _references(qd, "glistquery", {
+        **runs, **{name: [genome_list, *flag] for name, flag in
+                   stats.items()}})
+    log(f"glistquery 4d reference: the JAX host route in {len(refs)} "
+        f"subprocesses at once, {time.perf_counter() - t0:.3f} s; main() "
+        f"walls " + "; ".join(f"{n} {r[1]:.3f} s" for n, r in refs.items())
+        + f"; -l {os.path.getsize(refs['l'][2])} bytes, -s "
+        f"{os.path.getsize(refs['s'][2])} bytes ({n_reads} reads, "
+        f"{windows} windows) of stdout")
+    launches = None
+    for name, args in runs.items():
+        walls = {"card": [], "host": []}
+        for route in ("card", "host", "host", "card"):
+            mine = os.path.join(qd, f"port_{name}.out")
+            extract_kmers_cuda.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            split = route == "card" and not walls["card"]
+            with (stage_timer(torch, {}, targets) if split
+                  else contextlib.nullcontext({})) as stages:
+                rc, err, wall = _port_main_to_file(
+                    torch, main, qd, args, "GT4_TPU_LINK",
+                    None if route == "card" else "slow", mine)
+            n = extract_kmers_cuda.launches
+            _check_same_output(f"port glistquery -{name} ({route} route)",
+                               rc, err, mine, refs[name])
+            if name == "s":
+                check((n > 0) == (route == "card"),
+                      f"-s {route} route launched kernel A {n} times")
+                if launches is None:
+                    launches = n
+            walls[route].append(wall)
+            log(f"glistquery 4d -{name} port {route} route: main() wall "
+                f"{wall:.3f} s, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                f"kernel A launches {n}; stdout identical to the JAX host "
+                f"route's" + (f"; stages {_stage_text(stages)}" if split
+                              else ""))
+            os.remove(mine)
+        log(f"glistquery 4d -{name}: in turns, card route "
+            f"{walls['card'][0]:.3f} and {walls['card'][1]:.3f} s, the "
+            f"port's host route {walls['host'][0]:.3f} and "
+            f"{walls['host'][1]:.3f} s; JAX host route {refs[name][1]:.3f} s"
+            + (f" ({windows / min(walls['card']) / 1e6:.2f} M windows/s on "
+               f"the card)" if name == "s" else ""))
+    for name, flag in stats.items():
+        mine = os.path.join(qd, f"port_{name}.out")
+        rc, err, wall = _port_main_to_file(torch, main, qd,
+                                           [genome_list, *flag],
+                                           "GT4_TPU_LINK", None, mine)
+        _check_same_output(f"port glistquery {' '.join(flag)}", rc, err,
+                           mine, refs[name])
+        with open(mine) as f:
+            text = f.read()
+        log(f"glistquery 4d {' '.join(flag)}: main() wall {wall:.3f} s "
+            f"(JAX host route {refs[name][1]:.3f} s), identical; "
+            f"{text.splitlines()[-1] if name != 'distribution' else str(text.count(chr(10))) + ' lines'}")
+    shutil.rmtree(qd)
+    os.remove(reads_list)
+    return launches
+
+
+def write_caller_markers(path: str, seed: int):
+    """gmer_counter-style counts of CALLER_MARKERS (autosomal, X, Y)
+    markers, the model of ``tests/test_gmercaller.synth_counts`` (a male:
+    diploid autosomes, haploid X and Y; negative binomial counts as a
+    Gamma-Poisson mixture at mean 30) drawn in bulk. Returns the
+    autosomes' uint16 pairs, what gmer_caller's parse gives them."""
+    rng = np.random.default_rng(seed)
+    n_a, n_x, n_y = CALLER_MARKERS
+    mean = 30
+
+    def nb(m):
+        return rng.poisson(rng.gamma(10, np.maximum(m, 1e-3) / 10))
+
+    gt = rng.choice(3, n_a, p=[0.7, 0.25, 0.05])
+    a = nb(np.choose(gt, [mean, mean / 2, 0.5]))
+    b = nb(np.choose(gt, [0.5, mean / 2, mean]))
+    chrom = rng.integers(1, 23, n_a)
+    xa, xb = nb(np.full(n_x, mean / 2)), nb(np.full(n_x, 0.5))
+    ya, yb = nb(np.full(n_y, mean / 2)), nb(np.full(n_y, 0.5))
+    with open(os.path.join(path, "markers.txt"), "w") as f:
+        f.write("".join(f"{c}_m{i}\t2\t{x}\t{y}\n" for i, (c, x, y) in
+                        enumerate(zip(chrom.tolist(), a.tolist(),
+                                      b.tolist()))))
+        for name, ca, cb in (("X", xa, xb), ("Y", ya, yb)):
+            f.write("".join(f"{name}_m{i}\t2\t{x}\t{y}\n" for i, (x, y) in
+                            enumerate(zip(ca.tolist(), cb.tolist()))))
+    return np.stack([a, b], axis=1).astype(np.uint16)
+
+
+def caller_batch_timing(torch, calls: np.ndarray) -> None:
+    """The posterior batch alone on the full-model set's autosomes (the
+    --runs 0 --coverage 30 parameters): the card route (host q table and
+    prior, fan-out on the card, a[best], sum and best back) and the
+    native batch (with the a[best] gather print_genotypes does), in turns;
+    markers/s beside the bound: bytes on the card over 3.35 TB/s plus the
+    bytes over the link over 64 GB/s."""
+    from genometester4_tpu_torch.models import fastgt_native as native
+    from genometester4_tpu_torch.models.genotype import (
+        genotype_best_device, posterior_tables)
+    from genometester4_tpu_torch.pipelines.gmercall import DEFAULT_PARAMS
+
+    flat = np.ascontiguousarray(calls.reshape(-1))
+    n = len(calls)
+    params = DEFAULT_PARAMS.copy()
+    params[4] = 30
+    pB = native.allele_freq(flat)
+    a, sums, best = native.genotype_batch(flat, pB, params)
+    top, s2, b2 = genotype_best_device(flat, pB, params, "cuda")
+    check(np.array_equal(top.view(np.uint64),
+                         a[np.arange(n), best].view(np.uint64))
+          and np.array_equal(s2.view(np.uint64), sums.view(np.uint64))
+          and np.array_equal(b2, best),
+          "the card's posterior batch differs from the native batch")
+
+    def card():
+        return genotype_best_device(flat, pB, params, "cuda")
+
+    def host():
+        a, sums, best = native.genotype_batch(flat, pB, params)
+        return a[np.arange(n), best], sums, best
+
+    walls = {"card": [], "host": []}
+    for route in ("card", "host", "host", "card"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (card if route == "card" else host)()
+        walls[route].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    posterior_tables(flat, pB, params)
+    table = time.perf_counter() - t0
+    bound_s = (n * (4 + 20) / PEAK_BYTES) + n * (4 + 20) / LINK_BYTES
+    log(f"gmercaller 4e posterior batch alone, {n} markers, equal bits to "
+        f"the native batch: in turns card " + ", ".join(
+            f"{t:.4f} s ({n / t / 1e6:.2f} M markers/s)"
+            for t in walls["card"]) + "; native " + ", ".join(
+            f"{t:.4f} s ({n / t / 1e6:.2f} M markers/s)"
+            for t in walls["host"]) + f"; of the card's, the host q table "
+        f"and prior {table:.4f} s; bound {bound_s * 1e3:.4f} ms "
+        f"({n / bound_s / 1e6:.1f} M markers/s: 24 B a marker on the card "
+        f"over 3.35 TB/s and over the link at 64 GB/s)")
+
+
+def phase_gmercaller(torch, tmp: str, seed: int) -> None:
+    """4e: the port's gmer_caller CLI on CUDA: FastGT's chain on phase
+    4a's counts (--model diploid, a short training) and a full-model set,
+    the card route and the host route (GT4_TPU_CALLER_IMPL=host) in turns,
+    every stdout (a file), stderr and rc against the JAX CLI's host route,
+    whose subprocesses run beside the port's runs; then the posterior
+    batch alone."""
+    from genometester4_tpu_torch.cli.gmer_caller import main
+    from genometester4_tpu_torch.models import fastgt_native, genotype
+    from genometester4_tpu_torch.pipelines import gmercall
+
+    targets = [(gmercall, "build_line_table", "line table"),
+               (gmercall, "get_pair_median", "medians"),
+               (gmercall, "parse_calls", "call parse"),
+               (fastgt_native, "train_model", "training"),
+               (genotype, "genotype_best_device", "posterior batch"),
+               (genotype, "genotype_batch_device", "posterior batch"),
+               (gmercall, "print_genotypes", "print (the batch inside)")]
+    cd = os.path.join(tmp, "gmercaller")
+    os.makedirs(cd)
+    chain = os.path.join(tmp, GMER_COUNTS)
+    t0 = time.perf_counter()
+    calls = write_caller_markers(cd, seed)
+    log(f"gmercaller 4e input: {GMER_NODES} nodes of phase 4a's counts; "
+        f"{sum(CALLER_MARKERS)} synthetic markers {CALLER_MARKERS} "
+        f"(autosomal, X, Y; seed {seed}) in {time.perf_counter() - t0:.2f} s")
+    cases = {
+        "chain": (["--model", "diploid", "--runs", "1", "--training_size",
+                   str(CALLER_TRAINING), "--info", chain], 2),
+        "full": (["--runs", "0", "--coverage", "30", "--info", "--header",
+                  "markers.txt"], 2),
+        "alternatives": (["--runs", "0", "--coverage", "30",
+                          "--alternatives", "--prob_cutoff", "0.9",
+                          "markers.txt"], 1)}
+    with concurrent.futures.ThreadPoolExecutor(len(cases)) as ex:
+        refs = {name: ex.submit(reference_cli, cd, "gmer_caller", args,
+                                os.path.join(cd, f"ref_{name}.out"),
+                                GT4_TPU_CALLER_IMPL="host")
+                for name, (args, _) in cases.items()}
+        for name, (args, n_runs) in cases.items():
+            walls = []
+            for route in ("card", "host")[:n_runs]:
+                mine = os.path.join(cd, f"port_{name}.out")
+                torch.cuda.reset_peak_memory_stats()
+                with (stage_timer(torch, {}, targets) if route == "card"
+                      else contextlib.nullcontext({})) as stages:
+                    rc, err, wall = _port_main_to_file(
+                        torch, main, cd, args, "GT4_TPU_CALLER_IMPL",
+                        None if route == "card" else "host", mine)
+                ref = (*refs[name].result(),
+                       os.path.join(cd, f"ref_{name}.out"))
+                _check_same_output(f"port gmer_caller {name} ({route} "
+                                   f"route)", rc, err, mine, ref)
+                with open(mine, "rb") as f:
+                    lines = sum(chunk.count(b"\n") for chunk in
+                                iter(lambda: f.read(1 << 24), b""))
+                walls.append(wall)
+                log(f"gmercaller 4e {name} port {route} route: main() wall "
+                    f"{wall:.3f} s ({lines} lines, "
+                    f"{lines / wall / 1e6:.3f} M lines/s), peak device "
+                    f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                    f" GiB; stdout identical to the JAX host route's "
+                    f"(main() {ref[1]:.3f} s, run beside the port's)"
+                    + (f"; stages {_stage_text(stages)}" if stages else ""))
+                os.remove(mine)
+    caller_batch_timing(torch, calls)
+    shutil.rmtree(cd)
+
+
+
+def reference_cli(path: str, module: str, args: list, stdout_path=None,
+                  **env):
     """A CLI of the JAX package on its host route in a subprocess in
     ``path`` (``JAX_PLATFORMS=cpu``: its host routes import no jax): the
     read index's set-up and the reference output. Returns (the finished
-    process, the wall of the CLI's ``main`` in s, or None if it raised)."""
-    wall_file = os.path.join(path, ".main_wall")
+    process, the wall of the CLI's ``main`` in s, or None if it raised).
+    With ``stdout_path`` its stdout goes to that file (``stdout`` of the
+    process is then None). Safe to run from several threads at once."""
+    fd, wall_file = tempfile.mkstemp(prefix=".main_wall", dir=path)
+    os.close(fd)
+    os.remove(wall_file)
     code = ("import sys, time\n"
             f"from genometester4_tpu.cli.{module} import main\n"
             "t = time.perf_counter()\n"
@@ -1107,11 +1475,14 @@ def reference_cli(path: str, module: str, args: list, **env):
             "    f.write(repr(time.perf_counter() - t))\n"
             "sys.exit(rc)\n")
     repo = os.path.dirname(os.path.abspath(__file__))
-    r = subprocess.run(
-        [sys.executable, "-c", code, wall_file, *args], cwd=path,
-        capture_output=True, timeout=900,
-        env={**os.environ, "PYTHONPATH": repo, "JAX_PLATFORMS": "cpu",
-             **env})
+    with contextlib.ExitStack() as stack:
+        out = (stack.enter_context(open(stdout_path, "wb"))
+               if stdout_path else subprocess.PIPE)
+        r = subprocess.run(
+            [sys.executable, "-c", code, wall_file, *args], cwd=path,
+            stdout=out, stderr=subprocess.PIPE, timeout=900,
+            env={**os.environ, "PYTHONPATH": repo, "JAX_PLATFORMS": "cpu",
+                 **env})
     wall = None
     if os.path.exists(wall_file):
         with open(wall_file) as f:
@@ -1460,6 +1831,7 @@ def phase_sw_kernels(torch, seed: int) -> dict:
 
 
 def run(args) -> None:
+    t_start = time.perf_counter()
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -1547,6 +1919,16 @@ def run(args) -> None:
             f"first card --index run) {glist}")
         del bases
 
+        # 4d. glistquery on the genome's list, 4c's reads' list and a
+        # slice of 4a's reads
+        n = phase_glistquery(torch, tmp, out, os.path.join(
+            tmp, "glist_port", f"reads_{K}.list"),
+            os.path.join(tmp, "reads.fq"))
+        log(f"glistquery: kernel A launches in the first -s card run {n}")
+
+        # 4e. gmer_caller on 4a's counts and a full-model marker set
+        phase_gmercaller(torch, tmp, args.seed)
+
     with tempfile.TemporaryDirectory(prefix="gt4_chip_smoke_katk_") as tmp:
         # 4. katk: gassembler's region alignment through kernel C
         launches["sw_lanes"], inputs = phase_katk(torch, tmp, args.seed)
@@ -1562,6 +1944,8 @@ def run(args) -> None:
     res = phase_kernels(torch, args.seed)
     res.update(phase_sw_kernels(torch, args.seed))
     res["merge_runs"] = phase_merge_kernel(torch, args.seed)
+
+    log(f"smoke: phases 1-6 in {time.perf_counter() - t_start:.1f} s")
 
     # 7. card identity
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,4 +1,5 @@
-"""FASTA/FASTQ ingestion: the streaming slab parsers (the port's copy of
+"""FASTA/FASTQ ingestion: the whole-file parse (``load_file``) and the
+streaming slab parsers (the port's copy of ``load_file``,
 ``iter_code_slabs``, ``iter_slabs_indexed`` and what they call,
 ``genometester4_tpu/io/fasta.py``).
 
@@ -20,6 +21,7 @@ Semantics preserved from the reference:
 
 from __future__ import annotations
 
+import gzip
 import sys
 from dataclasses import dataclass
 
@@ -31,6 +33,18 @@ _NL = ord("\n")
 _CR = ord("\r")
 _GT = ord(">")
 _AT = ord("@")
+
+
+def open_source(path: str) -> bytes:
+    """Read a FASTA/FASTQ file (plain, .gz, or '-' for stdin) into bytes."""
+    if path == "-":
+        return sys.stdin.buffer.read()
+    with open(path, "rb") as f:
+        head = f.read(2)
+        f.seek(0)
+        if head == b"\x1f\x8b":
+            return gzip.decompress(f.read())
+        return f.read()
 
 
 @dataclass
@@ -114,6 +128,29 @@ def _scatter_records(data: np.ndarray, seq_spans_start, seq_spans_end,
     return out, rec_starts, rec_lengths, count_n
 
 
+def parse_fasta(raw: bytes) -> ParsedSequences:
+    data = np.frombuffer(raw, dtype=np.uint8)
+    starts, ends = _line_index(data)
+    raw_ends = ends  # name spans keep '\r': the reference's NAME state
+    # appends every byte until '\n' (src/fasta.c:145-174), so CRLF names
+    # include the '\r' and registry seq positions shift accordingly
+    ends = _strip_cr(data, ends)
+    is_header = data[starts] == _GT
+    header_idx = np.flatnonzero(is_header)
+    if len(header_idx) == 0:
+        raise ValueError("no FASTA records found (no '>' lines)")
+    # sequence lines belong to the most recent header
+    rec_of_line = np.cumsum(is_header) - 1  # -1 before first header
+    seq_mask = (~is_header) & (rec_of_line >= 0)
+    out, rec_starts, rec_lengths, count_n = _scatter_records(
+        data, starts[seq_mask], ends[seq_mask], rec_of_line[seq_mask],
+        len(header_idx))
+    name_spans = np.stack([starts[header_idx] + 1, raw_ends[header_idx]],
+                          axis=1)
+    return ParsedSequences(out, rec_starts, rec_lengths, name_spans,
+                           _data=raw, count_n=count_n)
+
+
 def _line_index_fastq(data: np.ndarray):
     """Line index counting EVERY '\\n'-delimited segment — including
     zero-length ones — minus the virtual segment after a trailing
@@ -159,6 +196,25 @@ def parse_fastq(raw: bytes) -> ParsedSequences:
                            (raw_ends[seq_lines] - starts[seq_lines])
                            .astype(np.int64), raw, count_n)
 
+
+def parse_sequences(raw: bytes) -> ParsedSequences:
+    """Auto-detect FASTA ('>') vs FASTQ ('@') by first byte, like the
+    reference's format sniffing (src/fasta.c:140-152)."""
+    i = 0
+    while i < len(raw) and raw[i] in (_NL, _CR, ord(" "), ord("\t")):
+        i += 1
+    if i >= len(raw):
+        raise ValueError("empty sequence file")
+    if raw[i] == _GT:
+        return parse_fasta(raw)
+    if raw[i] == _AT:
+        return parse_fastq(raw)
+    raise ValueError(f"unrecognized sequence format (first byte {raw[i]!r})")
+
+
+def load_file(path: str) -> ParsedSequences:
+    """Parse a whole FASTA/FASTQ file (plain, .gz or '-') at once."""
+    return parse_sequences(open_source(path))
 
 # ---------------------------------------------------------------------------
 # Streaming slab ingestion: bounded-RAM parsing for inputs larger than RAM.
@@ -482,7 +538,7 @@ def _fasta_slab_meta(data: np.ndarray, continuing: bool):
     if len(starts) == 0:
         return (0, np.zeros((0, 2), np.int64),
                 np.zeros(1 if continuing else 0, np.int64))
-    raw_ends = ends  # see parse_fastq: names keep '\r' (src/fasta.c:145-174)
+    raw_ends = ends  # see parse_fasta: names keep '\r' (src/fasta.c:145-174)
     ends = _strip_cr(data, ends)
     is_header = data[starts] == _GT
     n_headers = int(is_header.sum())

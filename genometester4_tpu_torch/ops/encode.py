@@ -20,6 +20,10 @@ port carries it as one int64:
 The numpy conversions below are how the differential tests give the JAX
 package and the port the same state: JAX's ``(hi, lo)`` pairs and the
 host's u64 word arrays both map one to one onto keys.
+
+torch is imported by the one function that makes a tensor
+(``keys_from_u64``), so the host helpers serve the CLIs' host routes
+without it.
 """
 
 from __future__ import annotations
@@ -27,10 +31,11 @@ from __future__ import annotations
 import sys
 
 import numpy as np
-import torch
 
 SIGN = -(1 << 63)             # int64 with only bit 63 set
 _SIGN_U64 = np.uint64(1 << 63)
+
+_B2S = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 # 256-entry byte -> 2-bit code table; 255 marks invalid characters
 # (reference src/sequence.c:43-86: A=0 C=1 G=2 T=U=3, case-insensitive)
@@ -67,6 +72,25 @@ def string_to_word(s: str, strict: bool = True) -> int:
             v = get_nucl_value(ord(ch) & 0xFF)
         w = ((w << 2) | int(v)) & 0xFFFFFFFFFFFFFFFF
     return w
+
+
+def word_to_string(word: int, k: int) -> str:
+    """Unpack a u64 into its k-character string (src/sequence.c:88-99)."""
+    out = bytearray(k)
+    w = int(word)
+    for i in range(k):
+        out[k - 1 - i] = _B2S[w & 3]
+        w >>= 2
+    return out.decode()
+
+
+def words_to_strings(words: np.ndarray, k: int) -> list[str]:
+    """Vectorized word -> string for arrays (used by list dumps)."""
+    words = np.asarray(words, dtype=np.uint64)
+    shifts = np.arange(2 * (k - 1), -1, -2, dtype=np.uint64)
+    codes = (words[:, None] >> shifts[None, :]) & np.uint64(3)
+    chars = _B2S[codes.astype(np.intp)]
+    return chars.view(f"S{k}").ravel().astype(str).tolist()
 
 
 def reverse_complement_u64(words: np.ndarray, k: int) -> np.ndarray:
@@ -136,11 +160,12 @@ def word_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def canonical(words: torch.Tensor, k: int) -> torch.Tensor:
     """Unsigned min(word, reverse complement), element-wise."""
     rc = reverse_complement(words, k)
-    return torch.minimum(words ^ SIGN, rc ^ SIGN) ^ SIGN
+    return (words ^ SIGN).minimum(rc ^ SIGN) ^ SIGN
 
 
 def keys_from_u64(words) -> torch.Tensor:
     """Host u64 words -> int64 keys (CPU tensor)."""
+    import torch
     w = np.asarray(words, dtype=np.uint64) ^ _SIGN_U64
     return torch.from_numpy(w.view(np.int64))
 

@@ -1,9 +1,12 @@
 """Host allocation setting shared by the port's file formats (the port's
-copy of ``disable_numpy_thp`` from ``genometester4_tpu/utils/backend.py``;
-the JAX package's placement cost model is not ported: the port takes an
-explicit device, ``utils.device``)."""
+copy of ``disable_numpy_thp`` from ``genometester4_tpu/utils/backend.py``)
+and the one switch of its placement: ``GT4_TPU_LINK=slow``. The JAX
+package's placement cost model is not ported: the port takes an explicit
+device, ``utils.device``."""
 
 from __future__ import annotations
+
+import os
 
 _thp_disabled = False
 
@@ -27,3 +30,11 @@ def disable_numpy_thp():
     except Exception:
         pass
     _thp_disabled = True
+
+
+def link_is_slow() -> bool:
+    """``GT4_TPU_LINK=slow``: the output-heavy pipelines (glistquery's
+    bulk lookups and ``-s``) take their host routes, as the JAX package's
+    ``accelerator_link_is_slow`` sends them there. A card on PCIe or
+    NVLink has no slow link to detect, so nothing else answers True."""
+    return os.environ.get("GT4_TPU_LINK") == "slow"

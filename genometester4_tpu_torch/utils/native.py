@@ -9,8 +9,11 @@ grouping and calling (``pipelines.gassemble``), gmer_counter's text
 database parser, count formatter and host counting route
 (``formats.gmerdb``, ``pipelines.gmercount``), and the glibc ``rand()``
 stream (``srand``, ``rand_skip``), glistmaker's index writer and host
-extraction (``pipelines.listmaker.make_index``) and glistcompare's host
-set operations, mismatch filter and subset (``pipelines.listcompare``).
+extraction (``pipelines.listmaker.make_index``) glistcompare's host
+set operations, mismatch filter and subset (``pipelines.listcompare``),
+glistquery's host lookups, dumps and statistics (``pipelines.listquery``)
+and gmer_caller's exact model (``models.fastgt_native``,
+``models.genotype``).
 It is host code, not a GPU kernel. ``load_raw`` is the same library as a
 bare ``CDLL`` without numpy, for the numpy-free CLI fast paths
 (``pipelines.subset_fast``, ``pipelines.setops_stream``).
@@ -276,6 +279,54 @@ def get_lib() -> ctypes.CDLL:
         lib.fgx_subset.argtypes = [
             u8p, ctypes.c_long, ctypes.c_ulonglong, ctypes.c_int,
             ctypes.c_ulonglong, ctypes.c_long, u8p, u64sp]
+        # glistquery: forward extraction, the record lookups, the record
+        # and location dumps, the statistics passes (native/listkernel.c)
+        lib.fgx_extract_forward.restype = ctypes.c_long
+        lib.fgx_extract_forward.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_int, u64p]
+        lib.fgx_lookup_records_batched.restype = None
+        lib.fgx_lookup_records_batched.argtypes = [
+            u8p, ctypes.c_long, u64p, ctypes.c_long, u32p]
+        lib.fgx_lookup_records_zipper.restype = None
+        lib.fgx_lookup_records_zipper.argtypes = \
+            lib.fgx_lookup_records_batched.argtypes
+        lib.fgx_dump_records.restype = ctypes.c_long
+        lib.fgx_dump_records.argtypes = [u8p, ctypes.c_long, ctypes.c_int,
+                                         u8p]
+        lib.fgx_dump_index_locations_raw.restype = ctypes.c_long
+        lib.fgx_dump_index_locations_raw.argtypes = [
+            u64p, ctypes.c_long, ctypes.c_ulonglong, ctypes.c_int, u64p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
+        u32sp = ctypes.POINTER(ctypes.c_uint)
+        lib.fgx_gc_rec.restype = None
+        lib.fgx_gc_rec.argtypes = [u8p, ctypes.c_long, u64sp, u64sp]
+        lib.fgx_median_rec.restype = None
+        lib.fgx_median_rec.argtypes = [u8p, ctypes.c_long, u32sp, u32sp,
+                                       u32sp]
+        lib.fgx_distro_rec.restype = None
+        lib.fgx_distro_rec.argtypes = [u8p, ctypes.c_long,
+                                       ctypes.c_ulonglong, u64sp]
+        # gmer_caller: the exact model (native/fastgt_exact.c)
+        u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        lib.fgx_poisson.restype = ctypes.c_double
+        lib.fgx_poisson.argtypes = [ctypes.c_uint, ctypes.c_double]
+        lib.fgx_allele_freq.restype = ctypes.c_float
+        lib.fgx_allele_freq.argtypes = [u16p, ctypes.c_uint]
+        lib.fgx_train_model.restype = ctypes.c_int
+        lib.fgx_train_model.argtypes = [
+            u16p, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, f32p,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_uint, ctypes.c_uint,
+            ctypes.c_uint]
+        lib.fgx_genotype_batch.restype = None
+        lib.fgx_genotype_batch.argtypes = [
+            u16p, ctypes.c_uint, ctypes.c_float, f32p, f64p, f64p, u32p]
+        lib.fgx_dnbinom_mu.restype = ctypes.c_double
+        lib.fgx_dnbinom_mu.argtypes = [ctypes.c_uint, ctypes.c_double,
+                                       ctypes.c_double]
+        lib.fgx_dbinom.restype = ctypes.c_double
+        lib.fgx_dbinom.argtypes = [ctypes.c_uint, ctypes.c_uint,
+                                   ctypes.c_double]
         _lib = lib
         return lib
 

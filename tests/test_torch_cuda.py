@@ -594,6 +594,123 @@ def test_list_clis_cuda_equal_cpu(cuda, tmp_path):
     assert min(got["cuda"][2]) > 0 and got["cpu"][2] == (0, 0)
 
 
+def _query_list(path, k, seed, n=200_000):
+    from genometester4_tpu_torch.formats.list_format import write_list
+    rng = np.random.default_rng(seed)
+    top = (1 << (2 * k)) - 1
+    w = np.unique(np.concatenate([
+        rng.integers(0, top, n, dtype=np.uint64, endpoint=True),
+        np.array([0, top], np.uint64)]))
+    c = rng.integers(1, 1000, len(w)).astype(np.uint32)
+    c[::101] = 0xFFFFFFFF
+    write_list(str(path), k, w, c)
+    return w, c
+
+
+@pytest.mark.parametrize("k", [12, 25, 32])
+def test_listquery_lookup_cuda_equals_cpu(cuda, tmp_path, k):
+    """ListQuery.lookup_device on the card against the CPU torch lookup
+    and the host route: word 0, the largest word, k = 32 words with bit
+    63 set, absent queries, several chunks."""
+    from genometester4_tpu_torch.pipelines.listquery import ListQuery
+    w, c = _query_list(tmp_path / "t.list", k, k)
+    rng = np.random.default_rng(k + 1)
+    q = np.concatenate([w[rng.permutation(len(w))[:150_000]],
+                        rng.integers(0, (1 << (2 * k)) - 1, 100_000,
+                                     dtype=np.uint64, endpoint=True),
+                        w[[0, -1]]])
+    got = ListQuery(str(tmp_path / "t.list"), "cuda").lookup_device(
+        q, chunk=1 << 16)
+    cpu = ListQuery(str(tmp_path / "t.list"), "cpu")
+    assert np.array_equal(got, cpu.lookup_device(q))
+    assert np.array_equal(got, cpu.lookup_host(q))
+    assert got[-2:].tolist() == [c[0], c[-1]]
+
+
+def test_glistquery_cuda_equals_cpu(cuda, tmp_path):
+    """The glistquery CLI with device="cuda" and device="cpu": -s (kernel
+    A's launch counter moves on the card only), -s with -mm 1, -l, -f and
+    a two-list dump; the same rc, stdout and stderr, also in -s chunks of
+    5,000 codes."""
+    import contextlib
+    import io
+
+    from genometester4_tpu_torch.cli.glistquery import main
+    from genometester4_tpu_torch.pipelines import listmaker, listquery
+    _genome_fasta(tmp_path / "g.fa", seed=3, n=200_000)
+    _genome_fasta(tmp_path / "h.fa", seed=3, n=60_000)   # g's first 60 kb
+    for name in ("g", "h"):
+        listmaker.make_list([str(tmp_path / f"{name}.fa")], 25,
+                            str(tmp_path / f"{name}_25.list"), device="cpu")
+    rng = np.random.default_rng(5)
+    (tmp_path / "q.txt").write_text("".join(
+        "".join(rng.choice(list("ACGT"), 25)) + "\n" for _ in range(6000)))
+    runs = [["g_25.list", "-s", "h.fa"],
+            ["g_25.list", "-s", "h.fa", "-mm", "1", "-min", "1"],
+            ["g_25.list", "-l", "h_25.list"],
+            ["g_25.list", "-f", "q.txt"],
+            ["g_25.list", "h_25.list"]]
+    got = {}
+    old = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        for device, chunk in (("cuda", 1 << 25), ("cpu", 1 << 25),
+                              ("cuda", 5000)):
+            listquery.SEARCH_CHUNK = chunk
+            outs, launches = [], []
+            for args in runs:
+                before = extract_kmers_cuda.launches
+                out, err = io.StringIO(), io.StringIO()
+                with contextlib.redirect_stdout(out), \
+                        contextlib.redirect_stderr(err):
+                    rc = main(args, device=device)
+                outs.append((rc, out.getvalue(), err.getvalue()))
+                launches.append(extract_kmers_cuda.launches - before)
+            got[device, chunk] = (outs, launches)
+    finally:
+        listquery.SEARCH_CHUNK = 1 << 25
+        os.chdir(old)
+    cpu = got["cpu", 1 << 25]
+    assert all(rc == 0 and out.count("\n") > 100 for rc, out, _ in cpu[0])
+    assert got["cuda", 1 << 25][0] == cpu[0] == got["cuda", 5000][0]
+    assert got["cuda", 1 << 25][1][:2] == [1, 1]
+    assert got["cuda", 5000][1][0] > 10
+    assert cpu[1] == [0] * 5
+
+
+@pytest.mark.parametrize("pB", [0.0, 0.29, 1.0])
+@pytest.mark.parametrize("case", [{}, {"size": -5.0},
+                                  {"p0": 0.5, "p1": 0.4, "p2": 0.3}])
+def test_genotype_batch_cuda_bit_equal_native(cuda, pB, case):
+    """The posterior fan-out on the card, bit-equal to the native batch on
+    all three arrays (float64 as uint64 bits), counts 0 to 65,535, in
+    several chunks; the best-only copy back too."""
+    from genometester4_tpu_torch.models import fastgt_native as native
+    from genometester4_tpu_torch.models.genotype import (
+        genotype_batch_device, genotype_best_device)
+    params = np.array([0.0547219, 4.2603e-05, 0.014934, 0.985023, 30.0,
+                       65.48, -0.6792684], np.float32)
+    for i, name in enumerate(("err", "p0", "p1", "p2", "lam", "size",
+                              "size2")):
+        if name in case:
+            params[i] = case[name]
+    rng = np.random.default_rng(len(case))
+    counts = rng.integers(0, 200, 2 * 300_000).astype(np.uint16)
+    counts[:2000] = rng.integers(0, 65536, 2000)
+    counts[2000:2004] = [0, 0, 65535, 65535]
+    a, s, b = native.genotype_batch(counts, pB, params)
+    a2, s2, b2 = genotype_batch_device(counts, pB, params, "cuda",
+                                       chunk=100_000)
+    assert np.array_equal(a.view(np.uint64), a2.view(np.uint64))
+    assert np.array_equal(s.view(np.uint64), s2.view(np.uint64))
+    assert np.array_equal(b, b2)
+    top, s3, b3 = genotype_best_device(counts, pB, params, "cuda")
+    assert np.array_equal(top.view(np.uint64),
+                          a[np.arange(len(b)), b].view(np.uint64))
+    assert np.array_equal(s3.view(np.uint64), s.view(np.uint64))
+    assert np.array_equal(b3, b)
+
+
 def _sorted_runs(cuda, seed, n, L, card, sentinel_tails=False):
     """int64 keys in [-card, card) sorted within each length-L run; with
     ``sentinel_tails`` each run ends in INT64_MAX from a random point."""

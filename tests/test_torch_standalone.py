@@ -6,10 +6,12 @@ import of either (at the top or inside a function) and for a string that
 runs one with ``-m`` or ``-c``. At run time: a fresh process imports every
 module of the port, runs its ``make_list`` on a small FASTA and its
 gassembler CLI on a small KATK fixture, its glistmaker CLI (``.list`` and
-``--index``) and its glistcompare CLI (two sources and three), all on the
-CPU, and then finds neither package in ``sys.modules``. Subprocesses check
-that the argument errors of both list CLIs and glistcompare's numpy-free
-fast paths import no torch. The read index of the fixture is the
+``--index``), its glistcompare CLI (two sources and three), its glistquery
+CLI (a dump, ``-s``, ``-l``) and its gmer_caller CLI, all on the CPU, and
+then finds neither package in ``sys.modules``. Subprocesses check that the
+argument errors of the list CLIs, glistcompare's numpy-free fast paths,
+glistquery's statistics and host routes and gmer_caller's host route
+import no torch. The read index of the fixture is the
 one set-up step that runs the JAX package (its ``gmer_counter
 --compile_index`` host route, in a subprocess of its own)."""
 
@@ -140,7 +142,21 @@ with contextlib.redirect_stdout(io.StringIO()), \
                         device="cpu"),
            glistcompare(["a_11.list", "a_11.list", "b_11.index", "-u"],
                         device="cpu")]
-rc = rc or any(rcs) or not os.path.exists("out_11_union.list")
+from genometester4_tpu_torch.cli.glistquery import main as glistquery
+from genometester4_tpu_torch.cli.gmer_caller import main as gmer_caller
+with open("calls.txt", "w") as f:
+    f.write("".join(f"{1 + i % 22}_m{i}\t2\t{30 - i % 31}\t{i % 29}\n"
+                    for i in range(600)))
+q = io.StringIO()
+with contextlib.redirect_stdout(q), \
+        contextlib.redirect_stderr(io.StringIO()):
+    rcs += [glistquery(["a_11.list"], device="cpu"),
+            glistquery(["a_11.list", "-s", fa], device="cpu"),
+            glistquery(["b_11.index", "-l", "a_11.list"], device="cpu"),
+            gmer_caller(["--runs", "0", "--coverage", "30", "calls.txt"],
+                        device="cpu")]
+rc = (rc or any(rcs) or not os.path.exists("out_11_union.list")
+      or q.getvalue().count("\n") < 10000)
 mods = sorted(m for m in sys.modules
               if m.split(".")[0] in ("genometester4_tpu", "jax", "jaxlib"))
 print(json.dumps({"n_words": hdr.n_words, "rc": rc,
@@ -149,9 +165,9 @@ print(json.dumps({"n_words": hdr.n_words, "rc": rc,
 
 
 def test_port_runs_without_the_jax_package(tmp_path):
-    """Every module imported, make_list, the gassembler CLI and both list
-    CLIs run on the CPU in a fresh process: no module of jax or of the JAX
-    package is loaded at the end."""
+    """Every module imported, make_list, the gassembler CLI, the list CLIs
+    and gmer_caller run on the CPU in a fresh process: no module of jax or
+    of the JAX package is loaded at the end."""
     from chip_smoke import reference_cli
     from genometester4_tpu_torch.tools import katk_fixture as kf
     rng = np.random.default_rng(12)
@@ -249,3 +265,67 @@ def test_list_clis_import_torch_only_on_a_device_route(tmp_path):
     assert (tmp_path / "s_subset_10.list").stat().st_size > 48
     assert (tmp_path / "m_10_union.list").stat().st_size > 48
     assert (tmp_path / "m_10_intrsec.list").exists()
+
+
+_NO_TORCH_QUERY = r'''
+import contextlib, io, json, os, sys
+from genometester4_tpu_torch.cli.glistquery import main as glistquery
+from genometester4_tpu_torch.cli.gmer_caller import main as gmer_caller
+runs = json.loads(sys.argv[1])
+rcs = []
+for tool, env, argv in runs:
+    os.environ.pop("GT4_TPU_LINK", None)
+    os.environ.pop("GT4_TPU_CALLER_IMPL", None)
+    os.environ.update(env)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rcs.append([(glistquery if tool == "q" else gmer_caller)(argv),
+                    len(out.getvalue())])
+print(json.dumps({"rcs": rcs, "torch": "torch" in sys.modules}))
+'''
+
+
+def test_query_and_caller_import_torch_only_on_a_device_route(tmp_path):
+    """glistquery's -h, -v, argument errors, numpy-free statistics, -D
+    statistics, single queries and its host routes (GT4_TPU_LINK=slow:
+    -s, -l, a two-list dump), and gmer_caller's -v, --no_genotypes and
+    host route (GT4_TPU_CALLER_IMPL=host), run in one fresh process
+    without importing torch, and print."""
+    from genometester4_tpu_torch.formats.list_format import write_list
+    rng = np.random.default_rng(6)
+    w = np.unique(rng.integers(0, 1 << 20, 6000).astype(np.uint64))
+    write_list(str(tmp_path / "l.list"), 10, w,
+               rng.integers(1, 5, len(w)).astype(np.uint32))
+    write_list(str(tmp_path / "m.list"), 10, w[::2],
+               rng.integers(1, 5, len(w[::2])).astype(np.uint32))
+    seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), 6000,
+                     p=[0.24, 0.25, 0.25, 0.25, 0.01])
+    (tmp_path / "in.fa").write_bytes(b">a\n" + seq.tobytes() + b"\n")
+    (tmp_path / "calls.txt").write_text("".join(
+        f"{1 + i % 22}_m{i}\t2\t{30 - i % 31}\t{i % 29}\n"
+        for i in range(300)))
+    slow, host = {"GT4_TPU_LINK": "slow"}, {"GT4_TPU_CALLER_IMPL": "host"}
+    runs = [("q", {}, a) for a in (
+        ["-h"], ["-v"], ["--bogus"], [], ["l.list", "-mm", "17"],
+        ["l.list", "--stat"], ["l.list", "--median"],
+        ["l.list", "--distribution", "4"], ["l.list", "--gc"],
+        ["l.list", "--median", "-D"], ["l.list", "-q", "ACGTACGTAC"],
+        ["l.list", "-q", "ACGTACGTAC", "-mm", "1", "--all"])]
+    runs += [("q", slow, a) for a in (
+        ["l.list", "-s", "in.fa"], ["l.list", "-l", "l.list"],
+        ["l.list", "m.list"])]
+    runs += [("c", {}, ["-v"]),
+             ("c", {}, ["--no_genotypes", "--info", "--runs", "0",
+                        "calls.txt"]),
+             ("c", host, ["--runs", "0", "--coverage", "30", "calls.txt"])]
+    r = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH_QUERY, json.dumps(runs)],
+        capture_output=True, text=True, timeout=120, cwd=str(tmp_path),
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.splitlines()[-1])
+    assert got["torch"] is False
+    rcs = [rc for rc, _ in got["rcs"]]
+    assert rcs == [0, 0, 1, 1, 1] + [0] * 13
+    assert all(n > 0 for _, n in got["rcs"][5:])
