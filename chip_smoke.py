@@ -11,7 +11,11 @@ Run from the repository root. Phases, each of which must pass:
            counts the canonical 25-mers of a 50 Mbp genome-shaped FASTA made
            from --seed (GC isochores + planted repeat families) at the default
            2^25-base chunk, so several chunks and the weighted device
-           merge run. Both kernels' launch counters must move.
+           merge run. Both kernels' launch counters must move. The merge's
+           device passes (weighted count_unique calls, one a rank bucket)
+           are logged: more than one, each within its target plus one
+           entry per shard, and kernel B launched once a chunk and once a
+           pass.
 3. oracle  numpy alone (no torch) counts the same 25-mers with np.unique;
            its .list bytes must equal the port's.
 3b. mesh   glistmaker's mesh counting route on the same FASTA: ``make_list``
@@ -66,11 +70,23 @@ Run from the repository root. Phases, each of which must pass:
            node names name no chromosome; --runs 1, --training_size
            20000), the card route and the host route
            (GT4_TPU_CALLER_IMPL=host); a full-model set (2,000,000
-           autosomal, 100,000 X and 40,000 Y markers from --seed) with
+           autosomal, 100,000 X and 40,000 Y markers from --seed, FastGT's
+           CHR:POS:ID:REF/ALT ids) with
            --runs 0 --coverage 30 --info --header on both routes, and with
            --alternatives --prob_cutoff 0.9 on the card route. Then the
            posterior batch alone on the set's autosomes, card and native in
            turns, bit-equal, as markers/s beside its bound.
+4f. extras  (a) 4c.c's glistcompare -u -i -d -dd through the mesh route
+           on 4 slots of the card (``make_mesh(devices=["cuda:0"] * 4)``):
+           the four files must equal 4c.c's single-card files, and every
+           device pass hold at most its target + 2 words; (b) 4a's
+           gmer_counter count mode on 4 slots: stdout equal to 4a's, kernel
+           A once per chunk; (c) make_union and make_intersection on the
+           card over four lists (the genome's, the reads', and the two
+           halves of the reads by record), every file, stdout and stderr
+           against the JAX CLI's host route in subprocesses; (d) generate_vcf
+           on 4e's full-model calls and katk2vcf on phase 4's calls, each
+           against the JAX CLI. Bytes are checked before any time prints.
 4. katk    KATK gassembler through the port's CLI on CUDA, over 1,000
            exome-style 200 bp regions (plus one oversized region between
            two regions of more than 200 reads) with 150 bp reads at 40x
@@ -164,6 +180,9 @@ MESH_SLOTS, MESH_DP = 8, 2
 GMER_NODES = 2_000_000
 GMER_READ_BP, GMER_DEPTH, GMER_SUB = 150, 2, 0.002
 GMER_COUNTS = "gmer_counts.txt"   # phase 4a's card-route stdout (4e's input)
+GMER_CALLS = "gmer_calls.txt"     # 4e's full-model card stdout (4f.d's input)
+KATK_CALLS = "katk_calls.txt"     # phase 4's first device-route stdout (4f.d)
+MESH_COMPARE_SLOTS = 4            # 4f.a and 4f.b: slots of one card
 QUERY_SEQ_BP = 5_000_000          # 4d: glistquery -s on this much of 4a's reads
 # 4e: the full-model marker set (autosomal, X, Y) and the chain's training
 CALLER_MARKERS = (2_000_000, 100_000, 40_000)
@@ -880,8 +899,9 @@ def gmer_count_steps(torch, path: str) -> None:
 def phase_gmercount(torch, path: str, bases: np.ndarray, seed: int) -> int:
     """gmer_counter's count mode through the port's CLI: the card route
     and the port's host route in turns, each against the JAX package's
-    host route in a subprocess. Returns kernel A's launches in the first
-    card run; its stdout stays in ``path``/GMER_COUNTS for phase 4e."""
+    host route in a subprocess. Returns the card route's walls and the
+    reference's stderr; the first card run's stdout stays in
+    ``path``/GMER_COUNTS for phases 4e and 4f.b."""
     from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
 
     t0 = time.perf_counter()
@@ -932,7 +952,7 @@ def phase_gmercount(torch, path: str, bases: np.ndarray, seed: int) -> int:
         f"{walls['host'][1]:.3f} s; kernel A launches on the gmercount path "
         f"{launches}")
     gmer_count_steps(torch, path)
-    return launches
+    return {"walls": walls["card"], "stderr": want.stderr}
 
 
 def _port_glistmaker(torch, path: str, args: list, card_route: bool):
@@ -980,7 +1000,9 @@ def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
     """The port's glistmaker and glistcompare CLIs on CUDA (4c.a-4c.d),
     every output against the JAX CLI's host route in a subprocess. Returns
     kernel A's and B's launches in 4c.a and A's in 4c.b's first card
-    run. The reads' .list of 4c.a stays in ``glist_port`` for phase 4d."""
+    run, and under "compare" 4c.c's argv, output, card walls and peaks and
+    the files of its last card run (4f.a's reference). The reads' .list of
+    4c.a stays in ``glist_port`` for phases 4d and 4f."""
     from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
     from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
     from genometester4_tpu_torch.pipelines import listcompare, listmaker
@@ -1075,21 +1097,29 @@ def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
     log(f"glist 4c.c reference: JAX host route glistcompare -u -i -d -dd "
         f"main() wall {ref_wall:.3f} s; records {sizes}")
     walls = {"card": [], "host": []}
-    for route in ("card", "host", "host", "card"):
+    peaks = []
+    for i, route in enumerate(("card", "host", "host", "card")):
         torch.cuda.reset_peak_memory_stats()
         rc, o, e, wall = _port_glistcompare(torch, pd, args, route == "card")
         _check_same_run(f"port glistcompare ({route} route)", (rc, o, e),
                         want, [(os.path.join(pd, n), os.path.join(jd, n))
                                for n in names])
         walls[route].append(wall)
+        if route == "card":
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         log(f"glist 4c.c port glistcompare {route} route: main() wall "
             f"{wall:.3f} s, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; four "
             f"files identical to the JAX host route's")
-        for n in names:
-            os.remove(os.path.join(pd, n))
+        if i < 3:   # the last card run's files stay for 4f.a
+            for n in names:
+                os.remove(os.path.join(pd, n))
     for n in names:
         os.remove(os.path.join(jd, n))
+    out["compare"] = {"args": args, "files": [os.path.join(pd, n)
+                                              for n in names],
+                      "run": (want.stdout, want.stderr),
+                      "walls": walls["card"], "peaks": peaks}
     log(f"glist 4c.c: in turns, card route {walls['card'][0]:.3f} and "
         f"{walls['card'][1]:.3f} s, the port's host route "
         f"{walls['host'][0]:.3f} and {walls['host'][1]:.3f} s")
@@ -1300,7 +1330,6 @@ def phase_glistquery(torch, tmp: str, genome_list: str, reads_list: str,
             f"(JAX host route {refs[name][1]:.3f} s), identical; "
             f"{text.splitlines()[-1] if name != 'distribution' else str(text.count(chr(10))) + ' lines'}")
     shutil.rmtree(qd)
-    os.remove(reads_list)
     return launches
 
 
@@ -1323,12 +1352,15 @@ def write_caller_markers(path: str, seed: int):
     chrom = rng.integers(1, 23, n_a)
     xa, xb = nb(np.full(n_x, mean / 2)), nb(np.full(n_x, 0.5))
     ya, yb = nb(np.full(n_y, mean / 2)), nb(np.full(n_y, 0.5))
+    # FastGT's marker ids, CHR:POS:ID:REF/ALT (generate_vcf parses them)
     with open(os.path.join(path, "markers.txt"), "w") as f:
-        f.write("".join(f"{c}_m{i}\t2\t{x}\t{y}\n" for i, (c, x, y) in
+        f.write("".join(f"{c}:{1000 + i}:m{i}:A/G\t2\t{x}\t{y}\n"
+                        for i, (c, x, y) in
                         enumerate(zip(chrom.tolist(), a.tolist(),
                                       b.tolist()))))
         for name, ca, cb in (("X", xa, xb), ("Y", ya, yb)):
-            f.write("".join(f"{name}_m{i}\t2\t{x}\t{y}\n" for i, (x, y) in
+            f.write("".join(f"{name}:{1000 + i}:{name}m{i}:C/T\t2\t{x}\t{y}"
+                            "\n" for i, (x, y) in
                             enumerate(zip(ca.tolist(), cb.tolist()))))
     return np.stack([a, b], axis=1).astype(np.uint16)
 
@@ -1392,7 +1424,8 @@ def phase_gmercaller(torch, tmp: str, seed: int) -> None:
     the card route and the host route (GT4_TPU_CALLER_IMPL=host) in turns,
     every stdout (a file), stderr and rc against the JAX CLI's host route,
     whose subprocesses run beside the port's runs; then the posterior
-    batch alone."""
+    batch alone. The full model's card stdout stays in ``tmp``/GMER_CALLS
+    for 4f.d."""
     from genometester4_tpu_torch.cli.gmer_caller import main
     from genometester4_tpu_torch.models import fastgt_native, genotype
     from genometester4_tpu_torch.pipelines import gmercall
@@ -1450,25 +1483,30 @@ def phase_gmercaller(torch, tmp: str, seed: int) -> None:
                     f" GiB; stdout identical to the JAX host route's "
                     f"(main() {ref[1]:.3f} s, run beside the port's)"
                     + (f"; stages {_stage_text(stages)}" if stages else ""))
-                os.remove(mine)
+                if (name, route) == ("full", "card"):
+                    shutil.move(mine, os.path.join(tmp, GMER_CALLS))
+                else:
+                    os.remove(mine)
     caller_batch_timing(torch, calls)
     shutil.rmtree(cd)
 
 
 
 def reference_cli(path: str, module: str, args: list, stdout_path=None,
-                  **env):
+                  func: str = "main", **env):
     """A CLI of the JAX package on its host route in a subprocess in
     ``path`` (``JAX_PLATFORMS=cpu``: its host routes import no jax): the
     read index's set-up and the reference output. Returns (the finished
     process, the wall of the CLI's ``main`` in s, or None if it raised).
     With ``stdout_path`` its stdout goes to that file (``stdout`` of the
-    process is then None). Safe to run from several threads at once."""
+    process is then None); ``func`` names the entry point (make_union's
+    are ``main_union`` and ``main_intersection``). Safe to run from
+    several threads at once."""
     fd, wall_file = tempfile.mkstemp(prefix=".main_wall", dir=path)
     os.close(fd)
     os.remove(wall_file)
     code = ("import sys, time\n"
-            f"from genometester4_tpu.cli.{module} import main\n"
+            f"from genometester4_tpu.cli.{module} import {func} as main\n"
             "t = time.perf_counter()\n"
             "rc = main(sys.argv[2:])\n"
             "with open(sys.argv[1], 'w') as f:\n"
@@ -1578,7 +1616,8 @@ def build_read_index(torch, path: str) -> str:
 def phase_katk(torch, path: str, seed: int):
     """KATK gassembler on CUDA: the port's device route and its own host
     route in turns, each against the JAX package's host route. Returns
-    (kernel C launches of the main path's run, the regions' SW inputs)."""
+    (kernel C launches of the main path's run, the regions' SW inputs);
+    that run's stdout stays in ``path``/KATK_CALLS for 4f.d."""
     from genometester4_tpu_torch.ops.swalign_cuda import sw_fill_lanes_cuda
     from genometester4_tpu_torch.pipelines import gassemble as port_gas
     from genometester4_tpu_torch.tools import katk_fixture as kf
@@ -1636,6 +1675,8 @@ def phase_katk(torch, path: str, seed: int):
             n_launch = sw_fill_lanes_cuda.launches
             if launches is None:   # the main path's run
                 launches = n_launch
+                with open(os.path.join(path, KATK_CALLS), "wb") as f:
+                    f.write(out)
             walls[route].append(wall)
             log(f"katk port {route} route: main() wall {wall:.3f} s "
                 f"({n_regions / wall:.1f} regions/s), peak device memory "
@@ -1830,6 +1871,243 @@ def phase_sw_kernels(torch, seed: int) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def merge_passes(seen: dict):
+    """Within the block, what ``make_list``'s merge does: each
+    ``merge_sorted_shards`` call's number of shards in ``seen["shards"]``,
+    and the entries of each weighted ``count_unique`` (one device pass of
+    the merge, a bucket that more than one shard reaches) in
+    ``seen["passes"]``; unweighted calls (a chunk's count) in
+    ``seen["chunks"]``."""
+    from genometester4_tpu_torch.pipelines import listmaker
+
+    merge, count = listmaker.merge_sorted_shards, listmaker.count_unique
+    seen.update(shards=[], passes=[], chunks=0)
+
+    def merged(shards, *a, **kw):
+        shards = list(shards)
+        seen["shards"].append(sum(1 for w, _ in shards if len(w)))
+        return merge(shards, *a, **kw)
+
+    def counted(keys, weights=None, *a, **kw):
+        if weights is None:
+            seen["chunks"] += 1
+        else:
+            seen["passes"].append(keys.numel())
+        return count(keys, weights, *a, **kw)
+    listmaker.merge_sorted_shards = merged
+    listmaker.count_unique = counted
+    try:
+        yield seen
+    finally:
+        listmaker.merge_sorted_shards = merge
+        listmaker.count_unique = count
+
+
+def _with(main, **kw):
+    """A CLI ``main`` that ``_port_main`` can call, with ``kw`` added."""
+    return lambda args, device: main(args, device=device, **kw)
+
+
+def phase_mesh_compare(torch, tmp: str, compare: dict) -> None:
+    """4f.a: 4c.c's glistcompare -u -i -d -dd through the mesh route
+    (buckets of the target, at least one a slot, dealt over the slots) on
+    MESH_COMPARE_SLOTS slots of the card; the four files must equal 4c.c's
+    last card run's, and no device pass may hold more than the target + 2
+    words."""
+    from genometester4_tpu_torch.cli.glistcompare import main
+    from genometester4_tpu_torch.ops import setops
+    from genometester4_tpu_torch.parallel.sharding import make_mesh
+    from genometester4_tpu_torch.pipelines import listcompare
+
+    md = os.path.join(tmp, "glist_mesh")
+    os.makedirs(md)
+    mesh = make_mesh(devices=["cuda:0"] * MESH_COMPARE_SLOTS)
+    cuts, passes = [], []
+    bucket_cuts, align = listcompare.bucket_cuts, setops.pair_align
+
+    def cut(words, target, n_min=1):
+        cuts.append((target, n_min))
+        return bucket_cuts(words, target, n_min)
+
+    def aligned(k1, c1, k2, c2):
+        passes.append(k1.numel() + k2.numel())
+        return align(k1, c1, k2, c2)
+    listcompare.bucket_cuts, setops.pair_align = cut, aligned
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        rc, o, e, wall = _port_main(torch, _with(main, mesh=mesh), md,
+                                    compare["args"], "GT4_TPU_SETOPS_IMPL",
+                                    None)
+    finally:
+        listcompare.bucket_cuts, setops.pair_align = bucket_cuts, align
+    check((rc, o, e) == (0, *compare["run"]),
+          f"mesh glistcompare exited {rc} or printed otherwise: {e[-300:]!r}")
+    target = listcompare.DEFAULT_BUCKET
+    check(cuts == [(target, MESH_COMPARE_SLOTS)],
+          f"the mesh route's cuts {cuts}")
+    check(len(passes) >= MESH_COMPARE_SLOTS and max(passes) <= target + 2,
+          f"the mesh route's device passes {passes}, target {target}")
+    for mine in compare["files"]:
+        name = os.path.basename(mine)
+        check(same_file(os.path.join(md, name), mine),
+              f"mesh glistcompare: {name} differs from 4c.c's")
+    log(f"glist 4f.a port glistcompare -u -i -d -dd on the mesh route "
+        f"({MESH_COMPARE_SLOTS} slots of cuda:0; {len(passes)} device "
+        f"passes of " + ", ".join(str(n) for n in passes) + f" words, "
+        f"target {target}): four files identical to 4c.c's single-card "
+        f"files; main() wall {wall:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (4c.c card "
+        f"route " + ", ".join(f"{w:.3f}" for w in compare["walls"])
+        + " s, peak " + ", ".join(f"{p:.2f}" for p in compare["peaks"])
+        + " GiB)")
+    shutil.rmtree(md)
+
+
+def phase_mesh_count(torch, tmp: str, count: dict) -> int:
+    """4f.b: 4a's gmer_counter count mode on MESH_COMPARE_SLOTS slots of
+    the card; stdout and stderr must equal 4a's and kernel A launch once
+    per chunk. Returns kernel A's launches."""
+    from genometester4_tpu_torch.cli.gmer_counter import main
+    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
+    from genometester4_tpu_torch.parallel.sharding import make_mesh
+    from genometester4_tpu_torch.pipelines import gmercount
+
+    mesh = make_mesh(devices=["cuda:0"] * MESH_COMPARE_SLOTS)
+    chunks = []
+    count_step = gmercount.count_step
+
+    def counted(codes, *a):
+        chunks.append(codes.numel())
+        return count_step(codes, *a)
+    gmercount.count_step = counted
+    try:
+        extract_kmers_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rc, o, e, wall = _port_main(torch, _with(main, mesh=mesh), tmp,
+                                    ["-db", "db.txt", "reads.fq"],
+                                    "GT4_TPU_COUNT_IMPL", None)
+    finally:
+        gmercount.count_step = count_step
+    launches = extract_kmers_cuda.launches
+    with open(os.path.join(tmp, GMER_COUNTS), "rb") as f:
+        want = f.read()
+    check((rc, e) == (0, count["stderr"]),
+          f"mesh gmer_counter exited {rc} or its stderr differs: {e!r}")
+    check(o == want, "mesh gmer_counter stdout differs from 4a's")
+    check(launches == len(chunks) >= MESH_COMPARE_SLOTS,
+          f"kernel A launches {launches} for {len(chunks)} chunks")
+    log(f"gmercount 4f.b port gmer_counter on the mesh route "
+        f"({MESH_COMPARE_SLOTS} slots of cuda:0, {len(chunks)} chunks dealt "
+        f"round-robin): stdout identical to 4a's; kernel A launches "
+        f"{launches}; main() wall {wall:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (4a card "
+        f"route " + ", ".join(f"{w:.3f}" for w in count["walls"]) + " s)")
+    return launches
+
+
+def _tree(path: str) -> dict:
+    """Every file under ``path`` by its relative name -> its size."""
+    out = {}
+    for root, _, files in os.walk(path):
+        for name in files:
+            full = os.path.join(root, name)
+            out[os.path.relpath(full, path)] = os.path.getsize(full)
+    return out
+
+
+def phase_extra_clis(torch, tmp: str, genome_list: str,
+                     reads_list: str) -> None:
+    """4f.c and 4f.d's generate_vcf: make_union and make_intersection over
+    four lists (the genome's, the reads', and the lists of the two halves
+    of the reads by record, made by the port's glistmaker on the card) on
+    the card, and generate_vcf on 4e's full-model calls, each against the
+    JAX CLI (make_union on its host route) in a subprocess, the three run
+    beside the port's runs; rc, stdout, stderr and every file equal."""
+    from genometester4_tpu_torch.cli import generate_vcf, make_union
+
+    ud = os.path.join(tmp, "extra")
+    inputs = os.path.join(ud, "in")
+    os.makedirs(inputs)
+    reads = os.path.join(tmp, "reads.fq")
+    with open(reads, "rb") as f:
+        data = f.read()
+    rec = data.index(b"\n@") + 1   # every record has the same length
+    half = len(data) // rec // 2 * rec
+    lists = [genome_list, reads_list]
+    for name, part in (("h1", data[:half]), ("h2", data[half:])):
+        with open(os.path.join(inputs, f"{name}.fq"), "wb") as f:
+            f.write(part)
+        rc, _, e, _ = _port_glistmaker(torch, inputs, [f"{name}.fq", "-w",
+                                                       str(K), "-o", name],
+                                       True)
+        check(rc == 0, f"glistmaker on the reads' half {name} exited {rc}")
+        lists.append(os.path.join(inputs, f"{name}_{K}.list"))
+    del data
+    # name: (the port's entry, the JAX module and entry, argv)
+    runs = {"make_union": (make_union.main_union, "main_union", lists),
+            "make_intersection": (make_union.main_intersection,
+                                  "main_intersection", lists),
+            "generate_vcf": (lambda a, device: generate_vcf.main(a), "main",
+                             [os.path.join(tmp, GMER_CALLS)])}
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as ex:
+        refs = {}
+        for name, (_, func, args) in runs.items():
+            os.makedirs(os.path.join(ud, f"jax_{name}"))
+            refs[name] = ex.submit(
+                reference_cli, os.path.join(ud, f"jax_{name}"),
+                "generate_vcf" if name == "generate_vcf" else "make_union",
+                args, None, func, GT4_TPU_SETOPS_IMPL="host")
+        for name, (fn, _, args) in runs.items():
+            pd, jd = (os.path.join(ud, f"{side}_{name}")
+                      for side in ("port", "jax"))
+            os.makedirs(pd)
+            rc, o, e, wall = _port_main(torch, fn, pd, args,
+                                        "GT4_TPU_SETOPS_IMPL", None)
+            r, ref_wall = refs[name].result()
+            check((rc, o, e) == (r.returncode, r.stdout, r.stderr)
+                  and rc == 0, f"port {name} exited {rc} (JAX "
+                               f"{r.returncode}) or printed otherwise: "
+                               f"{e[-300:]!r}")
+            tree = _tree(pd)
+            check(tree == _tree(jd), f"{name}: the files differ: {tree} vs "
+                                     f"{_tree(jd)}")
+            for f in tree:
+                check(same_file(os.path.join(pd, f), os.path.join(jd, f)),
+                      f"{name}: {f} differs from the JAX CLI's")
+            lines = o.count(b"\n")
+            log(f"4f.{'d' if name == 'generate_vcf' else 'c'} port {name} "
+                + (f"on 4e's calls: {lines} lines of stdout"
+                   if name == "generate_vcf" else
+                   f"over 4 lists on the card: {len(tree)} files "
+                   f"({sum(tree.values())} bytes)")
+                + ", rc, stdout and stderr identical to the JAX CLI's"
+                + ("" if name == "generate_vcf" else " (on its host route)")
+                + f"; main() wall {wall:.3f} s (JAX {ref_wall:.3f} s, run "
+                f"beside it)")
+            shutil.rmtree(pd)
+            shutil.rmtree(jd)
+    shutil.rmtree(ud)
+
+
+def phase_katk2vcf(torch, path: str) -> None:
+    """4f.d: the port's katk2vcf on phase 4's gassembler calls against the
+    JAX CLI in a subprocess: rc, stdout and stderr equal."""
+    from genometester4_tpu_torch.cli import katk2vcf
+
+    args = ["--chr_dir", "chr", KATK_CALLS]
+    r, ref_wall = reference_cli(path, "katk2vcf", args)
+    rc, o, e, wall = _port_main(torch, lambda a, device: katk2vcf.main(a),
+                                path, args, "GT4_TPU_COUNT_IMPL", None)
+    check((rc, o, e) == (r.returncode, r.stdout, r.stderr) and rc == 0,
+          f"port katk2vcf exited {rc} (JAX {r.returncode}) or printed "
+          f"otherwise: {e[-300:]!r}")
+    lines = o.count(b"\n")
+    log(f"4f.d port katk2vcf on phase 4's calls: {lines} lines "
+        f"of stdout, rc, stdout and stderr identical to the JAX CLI's; "
+        f"main() wall {wall:.3f} s (JAX {ref_wall:.3f} s)")
+
+
 def run(args) -> None:
     t_start = time.perf_counter()
     import torch
@@ -1840,7 +2118,8 @@ def run(args) -> None:
         from genometester4_tpu_torch.ops.extract_cuda import \
             extract_kmers_cuda
         from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
-        from genometester4_tpu_torch.pipelines.listmaker import make_list
+        from genometester4_tpu_torch.pipelines.listmaker import (
+            DEFAULT_MERGE_BUCKET, make_list)
     except ImportError as e:
         raise SmokeFailure(f"the port is not importable next to this "
                            f"script: {e}") from e
@@ -1881,7 +2160,8 @@ def run(args) -> None:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hdr = make_list([fa], K, out, device="cuda", debug=1)
+        with merge_passes({}) as merges:
+            hdr = make_list([fa], K, out, device="cuda", debug=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"extract": extract_kmers_cuda.launches,
@@ -1893,6 +2173,20 @@ def run(args) -> None:
             f"launches {launches}")
         for name, n in launches.items():
             check(n > 0, f"main path never launched the {name} kernel")
+        check(len(merges["shards"]) == 1,
+              f"make_list merged {len(merges['shards'])} times")
+        n_shards, sizes = merges["shards"][0], merges["passes"]
+        target = DEFAULT_MERGE_BUCKET
+        log(f"main path merge: {n_shards} shards of {merges['chunks']} "
+            f"chunks, {sum(sizes)} entries in {len(sizes)} device passes "
+            f"(rank buckets, target {target}): "
+            + ", ".join(str(n) for n in sizes))
+        check(len(sizes) > 1 and max(sizes) <= target + n_shards,
+              f"merge passes {sizes} for {n_shards} shards, target "
+              f"{target}")
+        check(launches["run_marks"] == merges["chunks"] + len(sizes),
+              f"kernel B launched {launches['run_marks']} times for "
+              f"{merges['chunks']} chunks and {len(sizes)} merge passes")
 
         # 3. oracle
         t0 = time.perf_counter()
@@ -1910,28 +2204,37 @@ def run(args) -> None:
         launches["merge_runs"] = mesh_launches["merge_runs"]
 
         # 4a. gmercount: gmer_counter's count mode on the same genome
-        phase_gmercount(torch, tmp, bases, args.seed)
+        count = phase_gmercount(torch, tmp, bases, args.seed)
 
         # 4c. glist: the glistmaker and glistcompare CLIs on the genome,
         # 4a's reads and the genome's .index
         glist = phase_glist(torch, tmp, fa, out)
         log(f"glist: kernel launches in 4c.a (the genome) and 4c.b (the "
-            f"first card --index run) {glist}")
+            f"first card --index run) "
+            f"{ {k: v for k, v in glist.items() if k != 'compare'} }")
         del bases
 
         # 4d. glistquery on the genome's list, 4c's reads' list and a
         # slice of 4a's reads
-        n = phase_glistquery(torch, tmp, out, os.path.join(
-            tmp, "glist_port", f"reads_{K}.list"),
-            os.path.join(tmp, "reads.fq"))
+        reads_list = os.path.join(tmp, "glist_port", f"reads_{K}.list")
+        n = phase_glistquery(torch, tmp, out, reads_list,
+                             os.path.join(tmp, "reads.fq"))
         log(f"glistquery: kernel A launches in the first -s card run {n}")
 
         # 4e. gmer_caller on 4a's counts and a full-model marker set
         phase_gmercaller(torch, tmp, args.seed)
 
+        # 4f. the mesh routes of glistcompare and gmer_counter on slots of
+        # the card, make_union/make_intersection and generate_vcf
+        phase_mesh_compare(torch, tmp, glist["compare"])
+        phase_mesh_count(torch, tmp, count)
+        phase_extra_clis(torch, tmp, out, reads_list)
+
     with tempfile.TemporaryDirectory(prefix="gt4_chip_smoke_katk_") as tmp:
         # 4. katk: gassembler's region alignment through kernel C
         launches["sw_lanes"], inputs = phase_katk(torch, tmp, args.seed)
+        # 4f.d: katk2vcf on its calls
+        phase_katk2vcf(torch, tmp)
 
     with tempfile.TemporaryDirectory(prefix="gt4_chip_smoke_long_") as tmp:
         # 4b. longread: kernel C on reads past one 256-column slab
@@ -1945,7 +2248,7 @@ def run(args) -> None:
     res.update(phase_sw_kernels(torch, args.seed))
     res["merge_runs"] = phase_merge_kernel(torch, args.seed)
 
-    log(f"smoke: phases 1-6 in {time.perf_counter() - t_start:.1f} s")
+    log(f"smoke: phases 1-6 and 4f in {time.perf_counter() - t_start:.1f} s")
 
     # 7. card identity
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -10,7 +10,9 @@ and no CUDA raises; ``main(argv, device="cpu")`` runs the same PyTorch
 ops on the CPU; ``GT4_TPU_SETOPS_IMPL=host`` the native host route).
 ``-ss`` and multi-list operations on plain ``.list`` inputs take the
 numpy-free native fast paths first, and ``-mm`` is host code, as in JAX.
-torch is imported only when a device route runs. The multi-process group
+torch is imported only when a device route runs; with more than one card
+(or ``main(argv, mesh=...)``) they run on a mesh of slots
+(``parallel.sharding``), as in JAX. The multi-process group
 of the JAX package (``GT4_DIST_*``) is not ported: more than one process
 is refused.
 
@@ -159,7 +161,7 @@ def _probe_source(fn, prev_magic, stream_flag):
     return None, None, magic
 
 
-def _main_impl(argv, device) -> int:
+def _main_impl(argv, device, mesh) -> int:
     if not argv:
         _help(1)  # src/glistcompare.c:103-105
 
@@ -446,7 +448,7 @@ def _main_impl(argv, device) -> int:
         if ops:
             res = lc.compare_pair(files[0], files[1], ops, outputname, cutoff,
                                   rule_name, count_override, subtraction,
-                                  countonly, device=device)
+                                  countonly, device=device, mesh=mesh)
             if countonly:
                 for op in ops:
                     nu, t = res[op]
@@ -487,7 +489,8 @@ def _main_impl(argv, device) -> int:
             if res is None:
                 res = lc.compare_multi(files, "union", outputname, cutoff,
                                        rule_name, count_override,
-                                       countonly, debug=debug, device=device)
+                                       countonly, debug=debug, device=device,
+                                       mesh=mesh)
             v = 0
             nu, t = res["union"]
             if debug:
@@ -521,7 +524,8 @@ def _main_impl(argv, device) -> int:
             if res is None:
                 res = lc.compare_multi(files, "intrsec", outputname,
                                        cutoff, rule_name, count_override,
-                                       countonly, debug=debug, device=device)
+                                       countonly, debug=debug, device=device,
+                                       mesh=mesh)
             v = 0
             nu, t = res["intrsec"]
             if debug:
@@ -545,14 +549,16 @@ def _print_mm_debug(files, n_words_of):
     sys.stderr.write(f"compare_wordmaps; List 2: {n_words_of[1]} entries\n")
 
 
-def main(argv=None, device=None) -> int:
+def main(argv=None, device=None, mesh=None) -> int:
     """Run glistcompare with ``argv`` (``sys.argv[1:]`` when None);
-    ``device`` is where the device route runs (None: CUDA)."""
+    ``device`` is where the device route runs (None: CUDA); ``mesh``, a
+    ``parallel.sharding.Mesh``, its slots (None: JAX's rule,
+    ``pipelines.listcompare``)."""
     if refuse_process_group("glistcompare"):
         return 1
     try:
         return _main_impl(list(sys.argv[1:] if argv is None else argv),
-                          device)
+                          device, mesh)
     except _HelpExit as e:
         sys.stdout.write(HELP)
         return e.code

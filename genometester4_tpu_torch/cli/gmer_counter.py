@@ -10,9 +10,11 @@ Counting and ``--compile_index`` run on the device
 (``pipelines.gmercount``: CUDA by default, and no CUDA raises when the
 counter is built; ``main(argv, device="cpu")`` runs the plain versions;
 ``GT4_TPU_COUNT_IMPL=host`` the native host route). Importing this
-module, ``-h``, a bad flag and the argument errors import no torch. The multi-process group (``GT4_DIST_*``) and the mesh
-count of the JAX package are not ported: with several cards the count
-runs on one.
+module, ``-h``, a bad flag and the argument errors import no torch.
+With more than one card count mode runs on a mesh of them, as in JAX
+(``main(argv, mesh=...)`` names one). The multi-process group of the JAX
+package (``GT4_DIST_*``) is not ported: more than one process is refused
+before any file is read.
 """
 
 from __future__ import annotations
@@ -116,10 +118,16 @@ def _eof_reader_lines(path: str) -> None:
                          "sequence at %d\n" % (path, size))
 
 
-def main(argv=None, device=None) -> int:
+def main(argv=None, device=None, mesh=None) -> int:
     """Run gmer_counter with ``argv`` (``sys.argv[1:]`` when None);
-    ``device`` is where counting runs (None: CUDA)."""
+    ``device`` is where counting runs (None: CUDA); ``mesh``, a
+    ``parallel.sharding.Mesh``, the slots of count mode (None: JAX's
+    rule, ``pipelines.gmercount.DBCounter``)."""
     from genometester4_tpu_torch.cli._cstrtol import strtol as _strtol
+    from genometester4_tpu_torch.cli.glistmaker import refuse_process_group
+
+    if refuse_process_group("gmer_counter"):
+        return 1
 
     argv = list(sys.argv[1:] if argv is None else argv)
     db_name = dbb = wdb = index_name = None
@@ -306,7 +314,8 @@ def main(argv=None, device=None) -> int:
         from genometester4_tpu_torch.pipelines.gmercount import (
             DBCounter, format_counts, pair_median, write_index_db)
         counter = DBCounter(db, collect_stats=bool(stats),
-                            build_index=bool(index_name), device=device)
+                            build_index=bool(index_name), device=device,
+                            mesh=mesh)
         for path in seqnames:
             if path != "-" and not os.path.isfile(path):
                 # the reference's reader fails inside read(2) and the

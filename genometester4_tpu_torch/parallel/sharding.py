@@ -22,8 +22,17 @@ outputs concatenate into one sorted list. Per step (dp * kp chunks)::
 JAX's result is dp-replicated, so each column merges once, on its row-0
 slot, with the same output. A device may fill several slots (a mesh of 8
 slots on one card, as the JAX tests run 8 virtual CPU devices); the slots
-then run one after another. Multi-process groups (``parallel/multihost``)
-and the mesh set operations are not ported.
+then run one after another.
+
+glistcompare on a mesh (``sharded_pair_ops``, ``sharded_multi_op``): the
+inputs are cut at the quantiles of their combined rank into buckets of
+at most the device route's target, at least one a slot
+(``pipelines.listcompare.bucket_cuts``); slot d runs the set operations
+of buckets d, d + S, ... on its own device, the slots of distinct cards
+side by side, and the outputs concatenate in bucket order. JAX packs the
+buckets into [n_dev, cap] padded arrays because shard_map needs one
+shape; here each bucket goes to its slot as its own unpadded slice.
+Multi-process groups (``parallel/multihost``) are not ported.
 """
 
 from __future__ import annotations
@@ -61,6 +70,11 @@ class Mesh:
     @property
     def shape(self) -> dict:
         return {"dp": len(self.devices), "kp": len(self.devices[0])}
+
+    @property
+    def slots(self) -> list:
+        """Every slot's device, row by row (JAX's flat ("sp",) mesh)."""
+        return [d for row in self.devices for d in row]
 
 
 def make_mesh(n_devices: int | None = None, dp: int | None = None,
@@ -339,3 +353,63 @@ def count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
         return np.empty(0, np.uint64), np.empty(0, np.uint32)
     return (np.concatenate([w for w, _ in out]),
             np.concatenate([c for _, c in out]))
+
+
+def sharded_pair_op(words1, counts1, words2, counts2, mesh: Mesh, op: str,
+                    rule: str = "default", cutoff: int = 1,
+                    count_override: int = 1, subtract: bool = False):
+    """One glistcompare pair operation over every slot of the mesh."""
+    return sharded_pair_ops(words1, counts1, words2, counts2, mesh, [op],
+                            rule, cutoff, count_override, subtract)[op]
+
+
+def _concat(parts):
+    """Per-part (words u64, counts u32) pieces -> one pair of arrays."""
+    parts = list(parts)
+    if not parts:
+        return np.empty(0, np.uint64), np.empty(0, np.uint32)
+    return (np.concatenate([w for w, _ in parts]),
+            np.concatenate([c for _, c in parts]))
+
+
+def sharded_pair_ops(words1, counts1, words2, counts2, mesh: Mesh, ops,
+                     rule: str = "default", cutoff: int = 1,
+                     count_override: int = 1, subtract: bool = False):
+    """glistcompare pair operations over every slot of the mesh.
+
+    words/counts are sorted unique u64/u32 arrays (a ``.list`` mmap's
+    columns will do). The parts are those ``compare_pair`` streams to its
+    files on a mesh (``pipelines.listcompare.pair_parts``): buckets cut
+    at the quantiles of the combined word population, at most
+    ``listcompare.DEFAULT_BUCKET`` + 2 words each and at least one a
+    slot, dealt round-robin over the slots; each part aligns once on its
+    slot's device, and that table feeds every
+    requested op (the reference zipper's one pass to four outputs,
+    src/glistcompare.c:843-905). Returns {op: (words, counts)}, sorted.
+    ``rule`` is an ``ops.setops`` rule.
+    """
+    from genometester4_tpu_torch.pipelines import listcompare
+    ops = list(ops)
+    outs = list(listcompare.pair_parts(
+        words1, counts1, words2, counts2, ops, rule, cutoff, count_override,
+        subtract, mesh=mesh))
+    return {op: _concat(out[op] for out in outs) for op in ops}
+
+
+def sharded_multi_op(word_lists, count_lists, mesh: Mesh, op: str,
+                     rule: str = "default", cutoff: int = 1,
+                     count_override: int = 1):
+    """N-list union/intersection over the mesh (glistcompare multi).
+
+    The parts of ``compare_multi`` on a mesh
+    (``pipelines.listcompare.multi_parts``), cut and dealt as in
+    ``sharded_pair_ops``: each part takes every list's slice of its
+    bucket and runs the N-way reduction on its slot's device
+    (src/glistcompare.c:500-717 semantics: cutoff on the COMBINED
+    frequency, intersection requires presence in all N lists). Returns
+    (words, counts), sorted.
+    """
+    from genometester4_tpu_torch.pipelines import listcompare
+    return _concat(listcompare.multi_parts(
+        word_lists, count_lists, op, rule, cutoff, count_override,
+        mesh=mesh))

@@ -1,7 +1,7 @@
 """gmer_counter: count DB k-mers in sequencing reads, and build KATK's read
 index (``--compile_index``). Port of
-``genometester4_tpu/pipelines/gmercount.py`` without its mesh and
-multi-process branches.
+``genometester4_tpu/pipelines/gmercount.py`` without its multi-process
+branch.
 
 Reference pipeline (src/gmer_counter.c:625-872): the FASTA reader emits
 canonical words into 10 Mi-word tables; worker threads walk the trie per
@@ -23,6 +23,14 @@ the searches are as many as the DB's words, not the windows. For k <= 31
 an invalid window carries flag bit 2k and sorts past every DB word; for
 k = 32 it carries the word 0, so the invalid windows of a chunk are taken
 off the DB word 0's count on the device (no compaction, no host sync).
+
+On a mesh (``DBCounter(mesh=...)``, or by default with more than one
+CUDA card and GT4_TPU_MESH != 0, as in JAX), count mode deals the chunks
+round-robin over the mesh's slots: each runs ``count_step`` on its
+slot's device, against that device's copy of the DB's keys and into that
+device's accumulator; ``finalize`` sums the accumulators on slot 0's
+device (JAX's per-round ``psum``, ``gmercount.py:119-162``, once at the
+end). Index mode stays on one device, as in JAX.
 
 Index mode, per chunk: kernel A's forward windows, their canonical words
 (``ops.encode.canonical``), ``dir = canonical != forward``, the lookup of
@@ -133,11 +141,16 @@ class DBCounter:
     direction) is also collected — the data for --compile_index
     (src/gmer_counter.c:523-623). ``device``: where the device route runs
     (None: CUDA); unused on the host route (``GT4_TPU_COUNT_IMPL=host``).
+    ``mesh``: a ``parallel.sharding.Mesh`` whose slots count mode's chunks
+    go to in turn (an accumulator a device, summed on slot 0's device by
+    ``finalize``); by default ``make_mesh()``
+    with more than one CUDA card, unless GT4_TPU_MESH=0. Index mode runs
+    on ``device`` alone.
     """
 
     def __init__(self, db: GmerDB, chunk_bases: int = DEFAULT_CHUNK_BASES,
                  collect_stats: bool = False, build_index: bool = False,
-                 device=None):
+                 device=None, mesh=None):
         self.db = db
         self.chunk_bases = chunk_bases
         self.collect_stats = collect_stats
@@ -165,6 +178,15 @@ class DBCounter:
                 self._host_acc = np.zeros(n, np.uint64)
         else:
             self._dev = resolve_device(device)
+            self._slots = [self._dev]
+            if not build_index:
+                if mesh is None:
+                    from genometester4_tpu_torch.pipelines.listmaker import \
+                        _default_mesh
+                    mesh = _default_mesh(self._dev, True)
+                if mesh is not None:
+                    self._slots = mesh.slots
+                    self._dev = self._slots[0]
             self._db_keys = keys_from_u64(db.sorted_words).to(self._dev)
             if build_index:
                 # u32 codes as their int32 bit patterns
@@ -172,12 +194,17 @@ class DBCounter:
                     np.ascontiguousarray(db.sorted_codes, np.uint32)
                     .view(np.int32)).to(self._dev)
             else:
-                self._acc = torch.zeros(n, dtype=torch.int64,
-                                        device=self._dev)
+                # per device of the slots: the DB's keys, an accumulator
+                self._keys = {d: self._db_keys.to(d) for d in self._slots}
+                self._accs = {d: torch.zeros(n, dtype=torch.int64, device=d)
+                              for d in self._keys}
+                self._next_slot = 0
                 self._zero_word = bool(n) and int(db.sorted_words[0]) == 0
             self._pinned = None
-            if self._dev.type == "cuda":
-                self._upload_done = torch.cuda.Event()
+            # per CUDA device one event, recorded after each copy out of
+            # the pinned buffer; the last one recorded guards its reuse
+            self._upload_done = {}
+            self._last_upload = None
         # per-slot GC counts for --stats. Bug-compat: the reference
         # re-reads the UNSHIFTED word every loop iteration
         # (src/gmer_counter.c:798-803 redeclares `word` inside the loop),
@@ -187,24 +214,28 @@ class DBCounter:
             self._slot_gc = (np.uint64(db.wordsize)
                              * ((w ^ (w >> np.uint64(1))) & np.uint64(1)))
 
-    def _upload(self, chunk: np.ndarray) -> torch.Tensor:
-        """One chunk on the device, padded with invalid bytes to
-        ``pow2_cap``; on CUDA through a pinned host buffer, reused once
-        the previous chunk's copy out of it has finished."""
+    def _upload(self, chunk: np.ndarray, dev: torch.device) -> torch.Tensor:
+        """One chunk on ``dev``, padded with invalid bytes to ``pow2_cap``;
+        on CUDA through a pinned host buffer, reused once the previous
+        chunk's copy out of it has finished."""
         cap = pow2_cap(len(chunk), self.chunk_bases)
-        if self._dev.type != "cuda":
+        if dev.type != "cuda":
             out = torch.full((cap,), 255, dtype=torch.uint8)
             out[:len(chunk)] = torch.from_numpy(chunk)
-            return out.to(self._dev)
-        self._upload_done.synchronize()
+            return out.to(dev)
+        if self._last_upload is not None:
+            self._last_upload.synchronize()
         if self._pinned is None or self._pinned.numel() < cap:
             self._pinned = torch.empty(cap, dtype=torch.uint8,
                                        pin_memory=True)
         host = self._pinned[:cap].numpy()
         host[:len(chunk)] = chunk
         host[len(chunk):] = 255
-        out = self._pinned[:cap].to(self._dev, non_blocking=True)
-        self._upload_done.record(torch.cuda.current_stream(self._dev))
+        out = self._pinned[:cap].to(dev, non_blocking=True)
+        if dev not in self._upload_done:
+            self._upload_done[dev] = torch.cuda.Event()
+        self._last_upload = self._upload_done[dev]
+        self._last_upload.record(torch.cuda.current_stream(dev))
         return out
 
     def _idx_lookup(self, chunk_codes: np.ndarray):
@@ -234,8 +265,8 @@ class DBCounter:
             return (hcode[:m].copy(), hpos[:m].copy(), hdir[:m].copy(),
                     int(nv.value))
         n_hit, hcode, hpos, hdir, n_valid = index_step(
-            self._upload(chunk_codes), self.db.wordsize, self._db_keys,
-            self._db_codes)
+            self._upload(chunk_codes, self._dev), self.db.wordsize,
+            self._db_keys, self._db_codes)
         return (hcode.cpu().numpy().view(np.uint32), hpos.cpu().numpy(),
                 hdir.to(torch.uint8).cpu().numpy(), int(n_valid))
 
@@ -424,9 +455,11 @@ class DBCounter:
             return
         step = self.chunk_bases - (k - 1)
         for start in range(0, max(n - (k - 1), 1), step):
+            dev = self._slots[self._next_slot]
+            self._next_slot = (self._next_slot + 1) % len(self._slots)
             n_valid = count_step(
-                self._upload(codes[start:start + self.chunk_bases]), k,
-                self._db_keys, self._acc, self._zero_word)
+                self._upload(codes[start:start + self.chunk_bases], dev), k,
+                self._keys[dev], self._accs[dev], self._zero_word)
             if self.collect_stats:
                 self.result.stats.n_kmers_total += int(n_valid)
 
@@ -440,7 +473,8 @@ class DBCounter:
         if self._host:
             totals = self._host_acc
         else:
-            totals = self._acc.cpu().numpy().view(np.uint64)
+            totals = (sum(acc.to(self._dev) for acc in self._accs.values())
+                      .cpu().numpy().view(np.uint64))
         ok = self._slot_ok
         if not ok.all() and totals[~ok].any():
             sys.stderr.write(

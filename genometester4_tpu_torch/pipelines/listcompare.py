@@ -5,21 +5,27 @@ Mirrors src/glistcompare.c's behaviors (see ops/setops.py for the rule
 semantics). Routes of ``compare_pair`` and ``compare_multi``:
 
 * the device route (default), on ``device`` (None: CUDA; ``"cpu"`` runs
-  the same PyTorch ops on the CPU). Large lists are processed in
-  word-range buckets: the inputs are partitioned at identical u64
-  boundaries (host searchsorted on the sorted mmap'd arrays), each bucket
-  goes to the device as int64 keys and runs one align + ops pass
+  the same PyTorch ops on the CPU). Large inputs are processed in
+  buckets cut at the quantiles of their combined rank (``bucket_cuts``:
+  host searches on the sorted mmap'd arrays, so each bucket holds at most
+  the target plus one word per input, whatever the words' range); each
+  bucket goes to the device as int64 keys and runs one align + ops pass
   (``ops.setops``), and the outputs stream to ListWriters in ascending
   order, so results are identical to a single full-size pass;
+* the mesh route, with ``mesh=`` or, as in JAX, by default on more than
+  one CUDA card (GT4_TPU_MESH=0 opts out): the same buckets, at least one
+  a slot, dealt round-robin over the slots; the slots of distinct cards
+  run side by side, and the outputs stream to the files in bucket order
+  (``parallel.sharding.sharded_pair_ops``/``sharded_multi_op`` return
+  them as arrays);
 * ``GT4_TPU_SETOPS_IMPL=host``: the native host route (a streaming C
   zipper, bucketed over threads on large inputs, and a k-way merge),
   as in JAX.
 
-The JAX package's placement cost model (``auto``), its mesh branches and
-its multi-process branches are not ported: with several cards the set
-operations run on one. ``compare_pair_mm`` (``-mm``) and ``make_subset``
-(``-ss``) are host code in JAX too and stay so. torch is imported only
-when a device route runs.
+The JAX package's placement cost model (``auto``) and its multi-process
+branches are not ported. ``compare_pair_mm`` (``-mm``) and
+``make_subset`` (``-ss``) are host code in JAX too and stay so. torch is
+imported only when a device route runs.
 """
 
 from __future__ import annotations
@@ -73,21 +79,6 @@ RULE_NUMBERS = {"default": 0, "add": 1, "subtract": 2, "min": 3, "max": 4,
                 "first": 5, "second": 6, "number": 7}
 
 DEFAULT_BUCKET = 1 << 25
-
-
-def _buckets(n_total, target):
-    n = 1 << max(0, math.ceil(math.log2(max(1, n_total / target))))
-    if n > 1:
-        bounds = np.arange(1, n, dtype=np.uint64) * np.uint64(2 ** 64 // n)
-    else:
-        bounds = np.empty(0, np.uint64)
-    return n, bounds
-
-
-def _bucket_slices(words, bounds, b, n_buckets):
-    a = 0 if b == 0 else np.searchsorted(words, bounds[b - 1])
-    z = len(words) if b == n_buckets - 1 else np.searchsorted(words, bounds[b])
-    return int(a), int(z)
 
 
 # multi-list ops print a progress line at every PROGRESS_TICK output
@@ -148,6 +139,28 @@ def _host_route() -> bool:
     return os.environ.get("GT4_TPU_SETOPS_IMPL") == "host"
 
 
+def word_rank(words, values) -> np.ndarray:
+    """``np.searchsorted(words, values)`` (side left) for a sorted u64
+    ``words``. numpy copies a strided or unaligned array whole before it
+    searches, and a ``.list`` mmap's word column is both (12-byte
+    records); such a column is searched here in place, by a vectorized
+    binary search of ~log2(len(words)) gathers."""
+    words = np.asarray(words)
+    values = np.asarray(values, np.uint64)
+    if words.flags.c_contiguous and words.flags.aligned:
+        return np.searchsorted(words, values)
+    lo = np.zeros(values.shape, np.int64)
+    hi = np.full(values.shape, len(words), np.int64)
+    while True:
+        active = lo < hi
+        if not active.any():
+            return lo
+        mid = (lo + hi) >> 1
+        below = active & (words[np.minimum(mid, len(words) - 1)] < values)
+        lo = np.where(below, mid + 1, lo)
+        hi = np.where(active & ~below, mid, hi)
+
+
 def rank_bounds(word_lists, n_parts: int) -> np.ndarray:
     """Quantile word boundaries over N sorted arrays WITHOUT re-sorting
     (the port's copy of JAX ``parallel/sharding.rank_bounds``).
@@ -155,7 +168,7 @@ def rank_bounds(word_lists, n_parts: int) -> np.ndarray:
     Value-space binary search on the combined rank: rank(v) =
     sum_i searchsorted(w_i, v) is monotone in v, so the t-th quantile
     boundary is the smallest v with rank(v) >= t*total/n_parts — found
-    in <=64 halvings, each a vectorized searchsorted per input.
+    in <=64 halvings, each a vectorized ``word_rank`` per input.
     """
     total = sum(len(w) for w in word_lists)
     targets = (np.arange(1, n_parts) * total) // n_parts
@@ -165,13 +178,37 @@ def rank_bounds(word_lists, n_parts: int) -> np.ndarray:
         mid = lo + ((hi - lo) >> np.uint64(1))
         rank = np.zeros(len(targets), np.int64)
         for w in word_lists:
-            rank += np.searchsorted(w, mid, side="left")
+            rank += word_rank(w, mid)
         ge = rank >= targets
         hi = np.where(ge, mid, hi)
         lo = np.where(ge, lo, mid + np.uint64(1))
         if np.all(lo >= hi):
             break
     return hi
+
+
+def rank_cuts(word_lists, n_parts: int) -> list:
+    """Cut N sorted unique word arrays at ``rank_bounds``: per array, the
+    n_parts + 1 offsets of its parts (int64). Part t of every array holds
+    the words in [bound t-1, bound t), so the parts of one t align across
+    the arrays, and ascending t gives ascending words. A word is in each
+    array at most once, so part t holds at most
+    ceil(total / n_parts) + N - 1 entries, whatever the words' range."""
+    bounds = rank_bounds(word_lists, n_parts)
+    return [np.concatenate([[0], word_rank(w, bounds), [len(w)]])
+            .astype(np.int64) for w in word_lists]
+
+
+def bucket_cuts(word_lists, target: int, n_min: int = 1) -> list:
+    """``rank_cuts`` into the fewest n = n_min * 2^j buckets with
+    total / n <= target, so that a bucket holds at most target + N
+    entries: the device passes of glistmaker's merge and of glistcompare's
+    set operations (n_min: the slots of a mesh, one bucket each at least).
+    """
+    total = sum(len(w) for w in word_lists)
+    n = n_min << max(0, math.ceil(math.log2(max(1, total / (target
+                                                           * n_min)))))
+    return rank_cuts(word_lists, n)
 
 
 # ---------------------------------------------------------------------------
@@ -337,14 +374,7 @@ def _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
         # output-sized per op — a RAM-for-cores trade the streaming
         # path below avoids on small machines.
         nb = min(4 * n_threads, 64)
-        bounds = rank_bounds([np.asarray(w1), np.asarray(w2)], nb)
-        cuts1 = np.concatenate(
-            [[0], np.searchsorted(w1, bounds),
-             [h1.n_words]]).astype(np.int64)
-        cuts2 = np.concatenate(
-            [[0], np.searchsorted(w2, bounds),
-             [h2.n_words]]).astype(np.int64)
-        nb = len(cuts1) - 1
+        cuts1, cuts2 = rank_cuts([w1, w2], nb)
         cap = 12 * (h1.n_words + h2.n_words)
         bufs, ns, ss = {}, {}, {}
         for op in ("union", "intrsec", "diff1", "diff2"):
@@ -434,14 +464,110 @@ def _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
         lib.fgx_pair_stream_free(st)
 
 
+def _placement(word_lists, device, mesh, target):
+    """The device route's parts: (each list's ``bucket_cuts``, the slots).
+    Buckets hold at most ``target`` + N words and number at least one a
+    slot; part p goes to slot p mod len(slots). The slots are those of
+    ``mesh`` (given, or by JAX's rule: more than one CUDA card and
+    GT4_TPU_MESH != 0, ``make_mesh()`` over all of them), else
+    ``device`` alone."""
+    if mesh is None:
+        from genometester4_tpu_torch.pipelines.listmaker import _default_mesh
+        from genometester4_tpu_torch.utils.device import resolve_device
+        dev = resolve_device(device)
+        mesh = _default_mesh(dev, True)
+        slots = [dev] if mesh is None else mesh.slots
+    else:
+        slots = mesh.slots
+    return bucket_cuts(word_lists, target, len(slots)), slots
+
+
+def _run_parts(run, n_parts, slots):
+    """``run(p, slots[p % len(slots)])`` for every part p, yielded in part
+    order. One window of len(slots) parts at a time: its parts of distinct
+    devices run side by side, a thread a device (torch lets go of the GIL
+    while a card works), those of one device one after another, so a
+    device holds one part at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    devices = list(dict.fromkeys(slots))
+    width = len(slots)
+
+    def on(dev, window):
+        return [(p, run(p, dev)) for p in window if slots[p % width] == dev]
+    with ThreadPoolExecutor(len(devices)) as pool:
+        for lo in range(0, n_parts, width):
+            window = range(lo, min(lo + width, n_parts))
+            done = dict(kv for f in [pool.submit(on, d, window)
+                                     for d in devices] for kv in f.result())
+            for p in window:
+                yield done[p]
+
+
+def pair_parts(w1, c1, w2, c2, ops, rule="default", cutoff=1,
+               count_override=1, subtract=False, device=None, mesh=None,
+               target=DEFAULT_BUCKET):
+    """The set operations ``ops`` of two sorted lists part by part
+    (``_placement``): part p of both goes to its slot's device as int64
+    keys, where one aligned table (``ops.setops.pair_align``) feeds every
+    op. Yields, in part order and skipping parts that hold nothing, {op:
+    (words u64, counts u32)} on the host; the parts concatenate into the
+    whole lists' results. ``rule`` is an ``ops.setops`` rule."""
+    from genometester4_tpu_torch.ops import setops
+    (cuts1, cuts2), slots = _placement([w1, w2], device, mesh, target)
+
+    def run(p, dev):
+        a1, z1, a2, z2 = cuts1[p], cuts1[p + 1], cuts2[p], cuts2[p + 1]
+        if z1 - a1 + z2 - a2 == 0:
+            return None
+        aligned = setops.pair_align(*_to_device(w1[a1:z1], c1[a1:z1], dev),
+                                    *_to_device(w2[a2:z2], c2[a2:z2], dev))
+        return {op: _to_host(*setops.apply_pair_op(
+            *aligned, op=op, rule=rule, cutoff=cutoff,
+            count_override=count_override, subtract=subtract))
+            for op in ops}
+    for out in _run_parts(run, len(cuts1) - 1, slots):
+        if out is not None:
+            yield out
+
+
+def multi_parts(word_lists, count_lists, op, rule="default", cutoff=1,
+                count_override=1, device=None, mesh=None,
+                target=DEFAULT_BUCKET):
+    """An N-list union or intersection part by part, as ``pair_parts``:
+    part p of every list, concatenated, on its slot's device
+    (``ops.setops.apply_multi_op``). Yields each part's (words u64,
+    counts u32) on the host, in part order, skipping parts that hold
+    nothing."""
+    from genometester4_tpu_torch.ops import setops
+    cuts, slots = _placement(word_lists, device, mesh, target)
+
+    def run(p, dev):
+        parts = [(w[c[p]:c[p + 1]], n[c[p]:c[p + 1]])
+                 for w, n, c in zip(word_lists, count_lists, cuts)]
+        if not any(len(w) for w, _ in parts):
+            return None
+        return _to_host(*setops.apply_multi_op(
+            *_to_device(np.concatenate([w for w, _ in parts]),
+                        np.concatenate([n for _, n in parts]), dev),
+            n_lists=len(word_lists), op=op, rule=rule, cutoff=cutoff,
+            count_override=count_override))
+    for out in _run_parts(run, len(cuts[0]) - 1, slots):
+        if out is not None:
+            yield out
+
+
 def compare_pair(list1: str, list2: str, ops: list[str], outputname: str = "out",
                  cutoff: int = 1, rule: str = "default", count_override: int = 1,
                  subtract: bool = False, count_only: bool = False,
-                 bucket_target: int = DEFAULT_BUCKET, device=None):
+                 bucket_target: int = DEFAULT_BUCKET, device=None, mesh=None):
     """Two-list compare producing any of union/intrsec/diff1/diff2.
 
     Returns {op: (n_words, total_count)}; writes files unless count_only.
-    ``device``: where the device route runs (None: CUDA).
+    ``device``: where the device route runs (None: CUDA), in buckets of
+    at most ``bucket_target`` + 2 words. ``mesh``: a
+    ``parallel.sharding.Mesh`` whose slots take those buckets in turn
+    instead (by default with more than one CUDA card, as in JAX), the
+    outputs streaming to the files as on one device.
     """
     h1, w1, c1 = read_word_source(list1)
     h2, w2, c2 = read_word_source(list2)
@@ -452,23 +578,12 @@ def compare_pair(list1: str, list2: str, ops: list[str], outputname: str = "out"
         _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
                            count_override, subtract)
     else:
-        from genometester4_tpu_torch.ops import setops
-        from genometester4_tpu_torch.utils.device import resolve_device
-        dev = resolve_device(device)
-        n_buckets, bounds = _buckets(h1.n_words + h2.n_words, bucket_target)
-        for b in range(n_buckets):
-            a1, z1 = _bucket_slices(w1, bounds, b, n_buckets)
-            a2, z2 = _bucket_slices(w2, bounds, b, n_buckets)
-            if z1 - a1 + z2 - a2 == 0:
-                continue
-            aligned = setops.pair_align(*_to_device(w1[a1:z1], c1[a1:z1], dev),
-                                        *_to_device(w2[a2:z2], c2[a2:z2], dev))
+        for out in pair_parts(w1, c1, w2, c2, list(sinks), RULES[rule],
+                              cutoff, count_override, subtract, device, mesh,
+                              bucket_target):
             for op, sink in sinks.items():
-                keys, counts = setops.apply_pair_op(
-                    *aligned, op=op, rule=RULES[rule], cutoff=cutoff,
-                    count_override=count_override, subtract=subtract)
-                if len(keys):
-                    sink.append(*_to_host(keys, counts))
+                if len(out[op][0]):
+                    sink.append(*out[op])
     results = {}
     for op, sink in sinks.items():
         sink.close()
@@ -555,9 +670,11 @@ def compare_multi(paths: list[str], op: str, outputname: str = "out",
                   cutoff: int = 1, rule: str = "default",
                   count_override: int = 1, count_only: bool = False,
                   bucket_target: int = DEFAULT_BUCKET, debug: int = 0,
-                  device=None):
+                  device=None, mesh=None):
     """N-list union/intersection (N > 2). ``device``: where the device
-    route runs (None: CUDA)."""
+    route runs (None: CUDA), in buckets of at most ``bucket_target`` + N
+    words; ``mesh``: the slots that take those buckets in turn, as in
+    ``compare_pair``."""
     data = [read_word_source(p) for p in paths]
     wlen = data[0][0].word_length
     n_lists = len(data)
@@ -584,28 +701,13 @@ def compare_multi(paths: list[str], op: str, outputname: str = "out",
         sink.close()
         return {op: (sink.n_words, sink.total_count)}
 
-    from genometester4_tpu_torch.ops import setops
-    from genometester4_tpu_torch.utils.device import resolve_device
-    dev = resolve_device(device)
-    total = sum(h.n_words for h, _, _ in data)
-    n_buckets, bounds = _buckets(total, bucket_target)
-    for b in range(n_buckets):
-        parts_w, parts_c = [], []
-        for h, w, c in data:
-            a, z = _bucket_slices(w, bounds, b, n_buckets)
-            if z > a:
-                parts_w.append(w[a:z])
-                parts_c.append(c[a:z])
-        if not parts_w:
-            # intersection of nothing in this range — nothing to write
-            continue
-        keys, counts = setops.apply_multi_op(
-            *_to_device(np.concatenate(parts_w), np.concatenate(parts_c),
-                        dev),
-            n_lists=n_lists, op=op, rule=RULES.get(rule, "number"),
-            cutoff=cutoff, count_override=count_override)
-        if len(keys):
-            sink.append(*_to_host(keys, counts))
+    words = [w for _, w, _ in data]
+    counts = [c for _, _, c in data]
+    for w, c in multi_parts(words, counts, op, RULES.get(rule, "number"),
+                            cutoff, count_override, device, mesh,
+                            bucket_target):
+        if len(w):
+            sink.append(w, c)
     sink.close()
     return {op: (sink.n_words, sink.total_count)}
 

@@ -8,7 +8,7 @@ Port of the device branch of ``genometester4_tpu/pipelines/listmaker.py``
   -> extract + canonicalize        kernel A (ops.extract_cuda)
   -> sort int64 keys               torch.sort
   -> unique keys and counts        kernel B (ops.runmarks_cuda), one sync
-  -> host prefix-bucketed merge    weighted count_unique per bucket
+  -> host rank-bucketed merge      weighted count_unique per bucket
   -> ListWriter                    formats.list_format
 
 With a mesh (``make_list(mesh=...)``, or by default with more than one
@@ -49,6 +49,7 @@ from genometester4_tpu_torch.ops.encode import (SIGN, canonical,
                                                 word_mask)
 from genometester4_tpu_torch.ops.kmers import extract_kmers_best
 from genometester4_tpu_torch.ops.sortcount import count_unique, sort_compact
+from genometester4_tpu_torch.pipelines.listcompare import bucket_cuts
 from genometester4_tpu_torch.utils.device import resolve_device
 
 # 2^25 bases per chunk: ~1 GB of device memory per chunk (codes, int64
@@ -120,43 +121,32 @@ def merge_sorted_shards(shards, target_bucket: int = DEFAULT_MERGE_BUCKET,
                         device=None):
     """Merge sorted (words, counts) shards into one global sorted stream.
 
-    The u64 word space is cut into equal prefix buckets, sized so each
-    bucket's input fits the device at once; every shard is split at the
-    same boundaries on the host, each bucket is merged with the weighted
-    ``count_unique`` on the device, and the sorted buckets are yielded in
-    ascending order. Counts add with u32 wrap-around like the reference's
-    counters.
+    The shards are cut at the same words into n = 2^ceil(log2(total /
+    target_bucket)) buckets at the quantiles of their combined rank
+    (``pipelines.listcompare.bucket_cuts``, host searches), so a bucket
+    holds at most ``target_bucket`` + one entry per shard whatever the
+    words' range; each bucket is merged with the weighted ``count_unique``
+    on the device, and the sorted buckets are yielded in ascending order.
+    Counts add with u32 wrap-around like the reference's counters.
     """
     dev = resolve_device(device)
     shards = [s for s in shards if len(s[0])]
     if not shards:
         return
-    total = sum(len(w) for w, _ in shards)
-    n_buckets = 1 << max(0, math.ceil(math.log2(max(1, total / target_bucket))))
-    # bucket b owns words in [b, b+1) * 2^64 / n_buckets
-    if n_buckets > 1:
-        bounds = (np.arange(1, n_buckets, dtype=np.uint64)
-                  * np.uint64(2 ** 64 // n_buckets))
-    else:
-        bounds = np.empty(0, dtype=np.uint64)
-    splits = [np.searchsorted(w, bounds) for w, _ in shards]
-    for b in range(n_buckets):
-        parts_w, parts_c = [], []
-        for (w, c), sp in zip(shards, splits):
-            a = 0 if b == 0 else sp[b - 1]
-            z = len(w) if b == n_buckets - 1 else sp[b]
-            if z > a:
-                parts_w.append(w[a:z])
-                parts_c.append(c[a:z])
-        if not parts_w:
+    cuts = bucket_cuts([w for w, _ in shards], target_bucket)
+    for b in range(len(cuts[0]) - 1):
+        parts = [(w[cut[b]:cut[b + 1]], c[cut[b]:cut[b + 1]])
+                 for (w, c), cut in zip(shards, cuts)
+                 if cut[b + 1] > cut[b]]
+        if not parts:
             continue
-        if len(parts_w) == 1:
+        if len(parts) == 1:
             # single source: already sorted and unique
-            yield np.asarray(parts_w[0]), np.asarray(parts_c[0])
+            yield np.asarray(parts[0][0]), np.asarray(parts[0][1])
             continue
-        keys = keys_from_u64(np.concatenate(parts_w)).to(dev)
+        keys = keys_from_u64(np.concatenate([w for w, _ in parts])).to(dev)
         weights = torch.from_numpy(
-            np.concatenate(parts_c).astype(np.int64)).to(dev)
+            np.concatenate([c for _, c in parts]).astype(np.int64)).to(dev)
         words, counts, _ = count_unique(keys, weights)
         yield u64_from_keys(words), to_host_counts(counts)
 

@@ -4,7 +4,7 @@
 and the tests build their gassembler input here, so the fixture the card
 runs is the one the CPU tests rehearse at a smaller size:
 
-    inputs = write_katk_fixture(path, seed)   # reads.fq, db.txt, regions.txt
+    inputs = write_katk_fixture(path, seed)  # reads.fq db.txt regions.txt chr/
 
 Its read index (``db.idx``) comes from ``gmer_counter INDEX_ARGS`` run in
 ``path``; gassembler then runs with ``ARGS``. ``chip_smoke.py`` builds it
@@ -34,7 +34,8 @@ ARGS = ["--dbi", "db.idx", "--region_file", "regions.txt", "--num_threads",
 
 
 def write_katk_fixture(path: str, seed: int, n_regions: int = REGIONS):
-    """KATK gassembler input in ``path``: reads.fq, db.txt, regions.txt.
+    """KATK gassembler input in ``path``: reads.fq, db.txt, regions.txt,
+    and the chromosome as ``chr/1.fa`` (katk2vcf's ``--chr_dir``).
 
     One chromosome with ``n_regions`` exome-style regions of 200 bp, 1 kb
     apart, each with anchor 25-mers every 30 bp (as ``bench.py:199-248``).
@@ -100,6 +101,10 @@ def write_katk_fixture(path: str, seed: int, n_regions: int = REGIONS):
         f.write("\n".join(dblines) + "\n")
     with open(os.path.join(path, "regions.txt"), "w") as f:
         f.write("\n".join(regions) + "\n")
+    os.makedirs(os.path.join(path, "chr"), exist_ok=True)
+    with open(os.path.join(path, "chr", "1.fa"), "wb") as f:
+        f.write(b">1\n" + b"".join(genome[i:i + 60].tobytes() + b"\n"
+                                   for i in range(0, len(genome), 60)))
     return inputs
 
 

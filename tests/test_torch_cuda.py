@@ -886,3 +886,74 @@ def test_make_list_default_mesh_across_cards(cards, tmp_path, monkeypatch):
     want = (tmp_path / "cpu.list").read_bytes()
     assert (tmp_path / "mesh.list").read_bytes() == want
     assert (tmp_path / "one.list").read_bytes() == want
+
+
+def test_compare_default_mesh_across_cards(cards, tmp_path, monkeypatch):
+    """More than one card: compare_pair and compare_multi on CUDA take the
+    mesh of every card by default, their buckets dealt over the cards and
+    run side by side; the files equal the CPU route's, and every card
+    aligns or reduces some bucket."""
+    from genometester4_tpu_torch.formats.list_format import write_list
+    from genometester4_tpu_torch.ops import setops
+    from genometester4_tpu_torch.pipelines import listcompare
+    paths = []
+    for i, (w, c) in enumerate(_word_lists(11, wrap=True)):
+        paths.append(str(tmp_path / f"l{i}_25.list"))
+        write_list(paths[-1], 25, w, c)
+    seen = set()
+    align, multi = setops.pair_align, setops.apply_multi_op
+    monkeypatch.setattr(setops, "pair_align", lambda *a: seen.add(
+        a[0].device) or align(*a))
+    monkeypatch.setattr(setops, "apply_multi_op", lambda keys, *a, **kw:
+                        seen.add(keys.device) or multi(keys, *a, **kw))
+    ops = ["union", "intrsec", "diff1", "diff2"]
+    files = {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        listcompare.compare_pair(paths[0], paths[1], ops, str(d / "p"),
+                                 rule="add", bucket_target=4096, device=dev)
+        for op in ("union", "intrsec"):
+            listcompare.compare_multi(paths, op, str(d / f"m{op}"), cutoff=2,
+                                      bucket_target=4096, device=dev)
+        files[dev] = {p.name: p.read_bytes() for p in d.iterdir()}
+    assert len(files["cpu"]) == 6 and files["cuda"] == files["cpu"]
+    assert {torch.device(c) for c in cards} <= seen
+
+
+@pytest.mark.parametrize("k", [25, 32])
+def test_gmer_counter_default_mesh_across_cards(cards, tmp_path, monkeypatch,
+                                                k):
+    """More than one card: gmer_counter's count mode on CUDA deals its
+    chunks over every card by default (kernel A once a chunk), and prints
+    what the CPU route prints."""
+    import contextlib
+    import io
+
+    from genometester4_tpu_torch.cli.gmer_counter import main
+    from genometester4_tpu_torch.pipelines import gmercount
+
+    class Small(gmercount.DBCounter):
+        def __init__(self, db, **kw):
+            super().__init__(db, chunk_bases=4096, **kw)
+    seen = []
+    count_step = gmercount.count_step
+    monkeypatch.setattr(gmercount, "DBCounter", Small)
+    monkeypatch.setattr(gmercount, "count_step", lambda codes, *a: seen.append(
+        codes.device) or count_step(codes, *a))
+    _gmer_inputs(tmp_path, k, seed=k + 1)
+    monkeypatch.delenv("GT4_TPU_COUNT_IMPL", raising=False)
+    monkeypatch.chdir(tmp_path)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        seen.clear()
+        before = extract_kmers_cuda.launches
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(["-db", "db.txt", "--stats", "--total", "reads.fq"],
+                      device=device)
+        runs[device] = (rc, out.getvalue(), err.getvalue())
+        if device == "cuda":
+            assert extract_kmers_cuda.launches - before == len(seen) >= 8
+            assert {d for d in seen} == {torch.device(c) for c in cards}
+    assert runs["cuda"] == runs["cpu"] and runs["cpu"][0] == 0

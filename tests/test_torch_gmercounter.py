@@ -423,3 +423,15 @@ def test_count_step_chunk_seams_and_launches(data, monkeypatch):
     assert results[0] == results[1] == results[2]
     assert results[0][1] > 0 and sum(results[0][0]) > 0
     assert extract_cuda.extract_kmers_cuda.launches == before
+
+
+def test_refuses_a_process_group(monkeypatch, tmp_path):
+    """More than one process (GT4_DIST_NPROCS=2): one line on stderr,
+    nothing on stdout, before any file is read (the database named does
+    not exist, and its error does not show)."""
+    monkeypatch.setenv("GT4_DIST_NPROCS", "2")
+    rc, out, err = _run(port_cli.main, tmp_path,
+                        ["-db", "missing.txt", "reads.fq"], device="cpu")
+    assert rc == 1 and out == "" and err.count("\n") == 1
+    assert err.startswith("gmer_counter: GT4_DIST_NPROCS=2")
+    assert not list(tmp_path.iterdir())

@@ -7,10 +7,13 @@ runs one with ``-m`` or ``-c``. At run time: a fresh process imports every
 module of the port, runs its ``make_list`` on a small FASTA and its
 gassembler CLI on a small KATK fixture, its glistmaker CLI (``.list`` and
 ``--index``), its glistcompare CLI (two sources and three), its glistquery
-CLI (a dump, ``-s``, ``-l``) and its gmer_caller CLI, all on the CPU, and
-then finds neither package in ``sys.modules``. Subprocesses check that the
-argument errors of the list CLIs, glistcompare's numpy-free fast paths,
-glistquery's statistics and host routes and gmer_caller's host route
+CLI (a dump, ``-s``, ``-l``), its gmer_caller CLI and its six extra CLIs
+(gdistribution, kmer_predictor, make_union and make_intersection,
+generate_vcf, katk2vcf, repeats), all on the CPU, and then finds neither
+package in ``sys.modules``. Subprocesses check that the argument errors of
+the list CLIs, glistcompare's numpy-free fast paths, glistquery's
+statistics and host routes, gmer_caller's host route and five of the
+extra CLIs (all but make_union, which runs glistcompare's device route)
 import no torch. The read index of the fixture is the
 one set-up step that runs the JAX package (its ``gmer_counter
 --compile_index`` host route, in a subprocess of its own)."""
@@ -155,8 +158,37 @@ with contextlib.redirect_stdout(q), \
             glistquery(["b_11.index", "-l", "a_11.list"], device="cpu"),
             gmer_caller(["--runs", "0", "--coverage", "30", "calls.txt"],
                         device="cpu")]
+from genometester4_tpu_torch.cli import (gdistribution, generate_vcf,
+                                         katk2vcf, kmer_predictor,
+                                         make_union, repeats)
+with open("lists.txt", "w") as f:
+    f.write("".join(f"s{i}\ta_11.list\t{i}\n" for i in range(22)))
+with open("calls.vcf.txt", "w") as f:
+    f.write("#Sex\tF\n1:5:rs1:A/G\tAB\t0.9\t3\t4\n")
+os.makedirs("chr", exist_ok=True)
+with open("chr/1.fa", "w") as f:
+    f.write(">1\n" + "ACGT" * 100 + "\n")
+with open("katk.txt", "w") as f:
+    f.write("1\t10\t0\tG\t30\tGA\tS\t0.9\t0.9\n"
+            "1\t20\t0\tA\t30\tAC\tS\t0.9\t0.9\n")
+with open("over.txt", "w") as f:
+    f.write("ACGTACGTACGTACGT\t5\n")
+x = io.StringIO()
+with contextlib.redirect_stdout(x), \
+        contextlib.redirect_stderr(io.StringIO()):
+    rcs += [gdistribution.main(["a_11.list", "b_11.index"]),
+            kmer_predictor.main(["--kmers", "a_11.list", "--lists",
+                                 "lists.txt"]),
+            make_union.main_union(["a_11.list", "a_11.list", "a_11.list"],
+                                  device="cpu"),
+            make_union.main_intersection(["a_11.list", "a_11.list"],
+                                         device="cpu"),
+            generate_vcf.main(["calls.vcf.txt"]),
+            katk2vcf.main(["--chr_dir", "chr", "katk.txt"]),
+            repeats.main(["find_regions", "over.txt", fa, "20", "1"])]
 rc = (rc or any(rcs) or not os.path.exists("out_11_union.list")
-      or q.getvalue().count("\n") < 10000)
+      or not os.path.exists("union_11_union.list")
+      or q.getvalue().count("\n") < 10000 or x.getvalue().count("\n") < 10)
 mods = sorted(m for m in sys.modules
               if m.split(".")[0] in ("genometester4_tpu", "jax", "jaxlib"))
 print(json.dumps({"n_words": hdr.n_words, "rc": rc,
@@ -165,9 +197,9 @@ print(json.dumps({"n_words": hdr.n_words, "rc": rc,
 
 
 def test_port_runs_without_the_jax_package(tmp_path):
-    """Every module imported, make_list, the gassembler CLI, the list CLIs
-    and gmer_caller run on the CPU in a fresh process: no module of jax or
-    of the JAX package is loaded at the end."""
+    """Every module imported, make_list, the gassembler CLI, the list CLIs,
+    gmer_caller and the six extra CLIs run on the CPU in a fresh process:
+    no module of jax or of the JAX package is loaded at the end."""
     from chip_smoke import reference_cli
     from genometester4_tpu_torch.tools import katk_fixture as kf
     rng = np.random.default_rng(12)
@@ -329,3 +361,74 @@ def test_query_and_caller_import_torch_only_on_a_device_route(tmp_path):
     rcs = [rc for rc, _ in got["rcs"]]
     assert rcs == [0, 0, 1, 1, 1] + [0] * 13
     assert all(n > 0 for _, n in got["rcs"][5:])
+
+
+_NO_TORCH_EXTRAS = r'''
+import contextlib, io, json, sys
+from genometester4_tpu_torch.cli import (gdistribution, generate_vcf,
+                                         katk2vcf, kmer_predictor, repeats)
+tools = {"gdistribution": gdistribution.main, "generate_vcf":
+         generate_vcf.main, "katk2vcf": katk2vcf.main, "kmer_predictor":
+         kmer_predictor.main, "repeats": repeats.main}
+rcs = []
+for tool, argv in json.loads(sys.argv[1]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rcs.append([tools[tool](argv), len(out.getvalue())])
+print(json.dumps({"rcs": rcs, "torch": "torch" in sys.modules}))
+'''
+
+
+def test_extra_clis_import_no_torch(tmp_path):
+    """gdistribution, kmer_predictor, generate_vcf, katk2vcf and every
+    stage of repeats run in one fresh process, print, and import no
+    torch."""
+    from genometester4_tpu_torch.formats.list_format import write_list
+    rng = np.random.default_rng(8)
+    w = np.unique(rng.integers(0, 1 << 16, 3000).astype(np.uint64))
+    write_list(str(tmp_path / "a_8.list"), 8, w,
+               rng.integers(1, 9, len(w)).astype(np.uint32))
+    write_list(str(tmp_path / "b_8.list"), 8, w[::3],
+               rng.integers(1, 9, len(w[::3])).astype(np.uint32))
+    (tmp_path / "lists.txt").write_text("".join(
+        f"s{i}\tb_8.list\t{i}\n" for i in range(25)))
+    (tmp_path / "calls.txt").write_text(
+        "#Sex\tM\n1:5:rs1:A/G\tAB\t0.9\t3\t4\nX:9:rs2:C/T\tB\t0.9\t0\t7\n")
+    (tmp_path / "chr").mkdir()
+    (tmp_path / "chr" / "1.fa").write_text(">1\n" + "ACGTTGCA" * 50 + "\n")
+    (tmp_path / "katk.txt").write_text(
+        "1\t10\t0\tG\t30\tGA\tS\t0.9\t0.9\n"
+        "1\t30\t0\tT\t30\tT-\tD\t0.9\t0.9\n"
+        "1\t60\t0\tC\t30\tCA\tS\t0.9\t0.9\n")
+    motif = "ACGGTCATTGCAGTCCA" * 4
+    (tmp_path / "g.fa").write_text(">g\n" + "T" * 50 + motif + "G" * 60
+                                   + motif + "C" * 40 + "\n")
+    (tmp_path / "over.txt").write_text("".join(
+        f"{motif[i:i + 16]}\t4\n" for i in range(len(motif) - 16)))
+    (tmp_path / "regions.fa").write_text(">r1 x\nACGT\n>r2 y\nACGA\n")
+    (tmp_path / "blast.txt").write_text("r1\t4\tr2\t4\t99\t4\n")
+    (tmp_path / "chroms.txt").write_text("r1\tchr1\nr2\tchr2\n")
+    runs = [["gdistribution", ["a_8.list", "b_8.list"]],
+            ["kmer_predictor", ["--kmers", "a_8.list", "--lists",
+                                "lists.txt"]],
+            ["kmer_predictor", ["-v"]],
+            ["generate_vcf", ["calls.txt"]],
+            ["katk2vcf", ["--chr_dir", "chr", "katk.txt"]],
+            ["repeats", ["find_regions", "over.txt", "g.fa", "20", "3"]],
+            ["repeats", ["collate_repeats", "blast.txt", "regions.fa"]],
+            ["repeats", ["filter_collated", "regions.fa", "0"]],
+            ["repeats", ["unique", "regions.fa", "blast.txt"]],
+            ["repeats", ["filter_final", "regions.fa", "chroms.txt",
+                         "chr1"]]]
+    r = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH_EXTRAS, json.dumps(runs)],
+        capture_output=True, text=True, timeout=120, cwd=str(tmp_path),
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.splitlines()[-1])
+    assert got["torch"] is False
+    assert [rc for rc, _ in got["rcs"]] == [0] * len(runs)
+    printed = [n > 0 for _, n in got["rcs"]]
+    assert printed == [True, False, True, True, True, True, True, False,
+                       True, True]
