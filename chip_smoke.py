@@ -87,6 +87,17 @@ Run from the repository root. Phases, each of which must pass:
            against the JAX CLI's host route in subprocesses; (d) generate_vcf
            on 4e's full-model calls and katk2vcf on phase 4's calls, each
            against the JAX CLI. Bytes are checked before any time prints.
+4g. group  glistmaker -w 25 on phase 2's FASTA, 4c.c's glistcompare -u
+           -i -d -dd and 4a's gmer_counter, each as a group of two
+           processes of the port's CLI (GT4_DIST_* on a free loopback
+           port, ``tools.group_run``) sharing the one card, so the
+           results travel over gloo through pinned memory (NCCL refuses
+           two processes on one card): one 2^25-base chunk a process, 4
+           rank buckets over 2 slots, two of 4a's four chunks a process.
+           Process 0's files and stdout must equal phases 2, 4c.c and
+           4a's; the other process prints and writes nothing; kernels A
+           (and B in glistmaker) launch in each process. Each group's
+           wall is printed beside one process's; no speed-up is expected.
 4. katk    KATK gassembler through the port's CLI on CUDA, over 1,000
            exome-style 200 bp regions (plus one oversized region between
            two regions of more than 200 reads) with 150 bp reads at 40x
@@ -2006,6 +2017,96 @@ def phase_mesh_count(torch, tmp: str, count: dict) -> int:
     return launches
 
 
+GROUP_PROCS = 2   # 4g: processes of the group, all on the one card
+
+
+def _group(tool: str, argv: list, cwd: str):
+    """4g: GROUP_PROCS processes of the port's ``tool`` CLI on CUDA as one
+    group (``tools.group_run.launch``, GT4_DIST_* on a free loopback
+    port). Returns the processes' (rc, stdout, stderr, report) and the
+    group's wall in s, process start included."""
+    from genometester4_tpu_torch.tools.group_run import launch
+    t0 = time.perf_counter()
+    res = launch([{"tool": tool, "argv": argv}] * GROUP_PROCS,
+                 [cwd] * GROUP_PROCS, timeout=600, dist_timeout=300)
+    wall = time.perf_counter() - t0
+    for rank, (rc, out, err, rep) in enumerate(res):
+        check(rc == 0 and rep is not None,
+              f"4g {tool} process {rank} exited {rc}: {err[-2000:]}")
+        check(rank == 0 or out == b"",
+              f"4g {tool} process {rank} printed {len(out)} bytes")
+    return res, wall
+
+
+def _group_log(what: str, res, wall: float, single: list) -> None:
+    mains = ", ".join(f"{rep['wall']:.3f}" for *_, rep in res)
+    log(f"group 4g.{what}: {GROUP_PROCS} processes on cuda:0, transport "
+        f"{res[0][3]['transport']}; group wall {wall:.3f} s (process "
+        f"start included), main() walls by process {mains} s; one process "
+        f"on the card " + ", ".join(f"{w:.3f}" for w in single) + " s; "
+        f"exchange by process (wall s, of it staging s, bytes) "
+        + "; ".join(f"{rep['exchange']['s']:.3f}, "
+                    f"{rep['exchange']['stage_s']:.3f}, "
+                    f"{rep['exchange']['bytes']}" for *_, rep in res)
+        + "; launches by process "
+        + "; ".join(str(rep["launches"]) for *_, rep in res))
+
+
+def phase_group(tmp: str, fa: str, genome_list: str, single_wall: float,
+                compare: dict, count: dict) -> None:
+    """4g: glistmaker, glistcompare and gmer_counter on a group of
+    GROUP_PROCS processes sharing the one card (gloo, staged through
+    pinned memory: NCCL refuses two processes on one card), on phase 2's
+    FASTA, 4c.c's lists and 4a's database and reads; process 0's files
+    and stdout must equal phases 2, 4c.c and 4a's, the others print and
+    write nothing, and each process launches kernel A (and B in
+    glistmaker). One card serves both, so no speed-up is expected, and
+    none is claimed."""
+    t0 = time.perf_counter()
+    gd = os.path.join(tmp, "group")
+    os.makedirs(gd)
+    # a: glistmaker on the genome, one 2^25-base chunk a process
+    res, wall = _group("glistmaker", [fa, "-w", str(K), "-o", "grp"], gd)
+    mine = os.path.join(gd, f"grp_{K}.list")
+    check(sorted(os.listdir(gd)) == [f"grp_{K}.list"],
+          f"4g glistmaker wrote {os.listdir(gd)}")
+    check(same_file(mine, genome_list),
+          "4g glistmaker's .list differs from phase 2's")
+    for *_, rep in res:
+        check(rep["launches"]["extract"] > 0
+              and rep["launches"]["run_marks"] > 0,
+              f"4g glistmaker launches {rep['launches']}")
+        check(rep["transport"] == "gloo", f"4g transport {rep['transport']}")
+    os.remove(mine)
+    _group_log("a glistmaker -w 25 (.list identical to phase 2's)", res,
+               wall, [single_wall])
+    # b: glistcompare -u -i -d -dd on 4c.c's lists, 4 parts over 2 slots
+    res, wall = _group("glistcompare", compare["args"], gd)
+    check(res[0][1] == compare["run"][0],
+          "4g glistcompare stdout differs from 4c.c's")
+    for want in compare["files"]:
+        got = os.path.join(gd, os.path.basename(want))
+        check(same_file(got, want),
+              f"4g glistcompare: {os.path.basename(want)} differs")
+    check(len(os.listdir(gd)) == len(compare["files"]),
+          f"4g glistcompare wrote {os.listdir(gd)}")
+    shutil.rmtree(gd)
+    _group_log("b glistcompare -u -i -d -dd (four files identical to "
+               "4c.c's)", res, wall, compare["walls"])
+    # c: gmer_counter count mode on 4a's database and reads
+    res, wall = _group("gmer_counter", ["-db", "db.txt", "reads.fq"], tmp)
+    with open(os.path.join(tmp, GMER_COUNTS), "rb") as f:
+        check(res[0][1] == f.read(), "4g gmer_counter stdout differs from "
+                                     "4a's")
+    for *_, rep in res:
+        check(rep["launches"]["extract"] > 0,
+              f"4g gmer_counter launches {rep['launches']}")
+    _group_log("c gmer_counter (stdout identical to 4a's)", res, wall,
+               count["walls"])
+    log(f"group 4g: {time.perf_counter() - t0:.1f} s in all; two processes "
+        f"share one card here, so no speed-up is expected or claimed")
+
+
 def _tree(path: str) -> dict:
     """Every file under ``path`` by its relative name -> its size."""
     out = {}
@@ -2230,6 +2331,9 @@ def run(args) -> None:
         phase_mesh_count(torch, tmp, count)
         phase_extra_clis(torch, tmp, out, reads_list)
 
+        # 4g. glistmaker, glistcompare and gmer_counter on a process group
+        phase_group(tmp, fa, out, wall, glist["compare"], count)
+
     with tempfile.TemporaryDirectory(prefix="gt4_chip_smoke_katk_") as tmp:
         # 4. katk: gassembler's region alignment through kernel C
         launches["sw_lanes"], inputs = phase_katk(torch, tmp, args.seed)
@@ -2248,7 +2352,8 @@ def run(args) -> None:
     res.update(phase_sw_kernels(torch, args.seed))
     res["merge_runs"] = phase_merge_kernel(torch, args.seed)
 
-    log(f"smoke: phases 1-6 and 4f in {time.perf_counter() - t_start:.1f} s")
+    log(f"smoke: phases 1-6, 4f and 4g in "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     # 7. card identity
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -12,9 +12,11 @@ ops on the CPU; ``GT4_TPU_SETOPS_IMPL=host`` the native host route).
 numpy-free native fast paths first, and ``-mm`` is host code, as in JAX.
 torch is imported only when a device route runs; with more than one card
 (or ``main(argv, mesh=...)``) they run on a mesh of slots
-(``parallel.sharding``), as in JAX. The multi-process group
-of the JAX package (``GT4_DIST_*``) is not ported: more than one process
-is refused.
+(``parallel.sharding``), as in JAX. With ``GT4_DIST_*`` set, the
+processes run the two-list and N-list operations as one group
+(``parallel.multihost``, N-list ones too on plain ``.list`` inputs, which
+alone skip the fast path) and only process 0 prints and writes; ``-ss``
+and ``-mm`` run in every process, as in JAX.
 
 Every warning/error string, stream choice (help → stdout, errors →
 stderr), exit code and op-sequencing quirk below is mirrored from the
@@ -33,7 +35,7 @@ import time
 
 from genometester4_tpu_torch.cli._cstrtol import (i32, strtol, strtol_u32,
                                                   strtoll_u64)
-from genometester4_tpu_torch.cli.glistmaker import refuse_process_group
+from genometester4_tpu_torch.parallel.multihost import is_multiprocess
 
 VERSION_LINE = 'glistcompare version 4.2.16 (stable)\n'
 HELP = 'glistcompare version 4.2.16 (stable)\nUsage: glistcompare INPUTLIST1 [INPUTLIST2...] METHOD [OPTIONS]\nOptions:\n    -v, --version            - print version information and exit\n    -h, --help               - print this usage screen and exit\n    -u, --union              - union of input lists\n    -i, --intersection       - intersection of input lists\n    -d, --difference         - difference of input lists\n    -dd, --double_difference - double difference of input lists\n    -du, --diff_union        - subtract first list from the second and finds difference\n    -mm, --mismatch   NUMBER - specify number of mismatches (default 0, can be used with -diff and -ddiff)\n    -c, --cutoff NUMBER      - specify frequency cut-off (default 1)\n    -o, --outputname STRING  - specify output name (default "out")\n    -r, --rule STRING        - specify rule how final frequencies are calculated (default, add, subtract, min, max, first, second, 1, 2)\n                               NOTE: rules min, subtract, first and second can only be used with finding the intersection.\n    -ss, --subset METHOD SIZE - make subset with given method (rand, rand_unique, rand_weighted_unique)\n    --seed INTEGER           - Set seed of random number generator (default uses start time)\n    --count_only             - output count of k-mers instead of k-mers themself\n    --disable_scouts         - disable list read-ahead in background thread\n    --stream                 - read input as stream (do not memory map files)\n    -D                       - increase debug level\n'
@@ -483,9 +485,9 @@ def _main_impl(argv, device, mesh) -> int:
             # the same native kernel; pipelines/setops_stream.py)
             from genometester4_tpu_torch.pipelines.setops_stream import \
                 try_fast_multi
-            res = try_fast_multi(files, "union", outputname, cutoff,
-                                 rule_name, count_override, countonly,
-                                 debug)
+            res = None if is_multiprocess() else try_fast_multi(
+                files, "union", outputname, cutoff, rule_name,
+                count_override, countonly, debug)
             if res is None:
                 res = lc.compare_multi(files, "union", outputname, cutoff,
                                        rule_name, count_override,
@@ -518,9 +520,9 @@ def _main_impl(argv, device, mesh) -> int:
             _t0 = _time.time()
             from genometester4_tpu_torch.pipelines.setops_stream import \
                 try_fast_multi
-            res = try_fast_multi(files, "intrsec", outputname, cutoff,
-                                 rule_name, count_override, countonly,
-                                 debug)
+            res = None if is_multiprocess() else try_fast_multi(
+                files, "intrsec", outputname, cutoff, rule_name,
+                count_override, countonly, debug)
             if res is None:
                 res = lc.compare_multi(files, "intrsec", outputname,
                                        cutoff, rule_name, count_override,
@@ -554,8 +556,8 @@ def main(argv=None, device=None, mesh=None) -> int:
     ``device`` is where the device route runs (None: CUDA); ``mesh``, a
     ``parallel.sharding.Mesh``, its slots (None: JAX's rule,
     ``pipelines.listcompare``)."""
-    if refuse_process_group("glistcompare"):
-        return 1
+    from genometester4_tpu_torch.parallel.multihost import join_from_env
+    join_from_env()
     try:
         return _main_impl(list(sys.argv[1:] if argv is None else argv),
                           device, mesh)

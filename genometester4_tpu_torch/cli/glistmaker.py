@@ -11,8 +11,9 @@ Usage: glistmaker <INPUTFILES> [OPTIONS]
 device (CUDA by default, and no CUDA raises; ``main(argv, device="cpu")``
 runs the plain versions; ``GT4_TPU_COUNT_IMPL=host`` takes ``make_index``'s
 native host route). Importing this module, ``-h``, ``-v``, a bad flag and
-every argument error import no torch. The multi-process group of the JAX
-package (``GT4_DIST_*``) is not ported: more than one process is refused.
+every argument error import no torch. With ``GT4_DIST_COORD``,
+``GT4_DIST_NPROCS`` > 1 and ``GT4_DIST_PROC_ID`` set, the processes count
+as one group (``parallel.multihost``), as in JAX.
 """
 
 from __future__ import annotations
@@ -203,23 +204,14 @@ def _main_impl(argv, device) -> int:
     return 0
 
 
-def refuse_process_group(tool: str) -> bool:
-    """True, after a one-line error, when GT4_DIST_NPROCS asks for more
-    than one process: each would count the whole input and race to write
-    one file."""
-    n = os.environ.get("GT4_DIST_NPROCS", "1")
-    if n.strip().isdigit() and int(n) <= 1:
-        return False
-    sys.stderr.write(f"{tool}: GT4_DIST_NPROCS={n}: the multi-process "
-                     "group is not supported; run one process\n")
-    return True
-
-
 def main(argv=None, device=None) -> int:
     """Run glistmaker with ``argv`` (``sys.argv[1:]`` when None);
-    ``device`` is where counting runs (None: CUDA)."""
-    if refuse_process_group("glistmaker"):
-        return 1
+    ``device`` is where counting runs (None: CUDA). With GT4_DIST_* set,
+    this process first joins the group (``parallel.multihost``), and only
+    process 0 prints and writes the ``.list``; ``--index`` stays per
+    process, as in JAX."""
+    from genometester4_tpu_torch.parallel.multihost import join_from_env
+    join_from_env()
     return _main_impl(list(sys.argv[1:] if argv is None else argv), device)
 
 

@@ -12,9 +12,9 @@ counter is built; ``main(argv, device="cpu")`` runs the plain versions;
 ``GT4_TPU_COUNT_IMPL=host`` the native host route). Importing this
 module, ``-h``, a bad flag and the argument errors import no torch.
 With more than one card count mode runs on a mesh of them, as in JAX
-(``main(argv, mesh=...)`` names one). The multi-process group of the JAX
-package (``GT4_DIST_*``) is not ported: more than one process is refused
-before any file is read.
+(``main(argv, mesh=...)`` names one). With ``GT4_DIST_*`` set, count mode
+runs on the processes as one group (``parallel.multihost``) and only
+process 0 prints; ``--compile_index`` stays per process, as in JAX.
 """
 
 from __future__ import annotations
@@ -124,10 +124,9 @@ def main(argv=None, device=None, mesh=None) -> int:
     ``parallel.sharding.Mesh``, the slots of count mode (None: JAX's
     rule, ``pipelines.gmercount.DBCounter``)."""
     from genometester4_tpu_torch.cli._cstrtol import strtol as _strtol
-    from genometester4_tpu_torch.cli.glistmaker import refuse_process_group
+    from genometester4_tpu_torch.parallel.multihost import join_from_env
 
-    if refuse_process_group("gmer_counter"):
-        return 1
+    join_from_env()
 
     argv = list(sys.argv[1:] if argv is None else argv)
     db_name = dbb = wdb = index_name = None

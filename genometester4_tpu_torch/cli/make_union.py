@@ -8,7 +8,8 @@ pairwise step calls the port's glistcompare in-process on ``device``
 (None: CUDA; ``main_union(argv, device="cpu")`` runs its PyTorch ops on
 the CPU); the staging layout (round directories, ``copy_`` carry-overs,
 ``<i>_<i+1>`` output names) is preserved so existing workflows keep
-working.
+working. In a process group (GT4_DIST_*) each pairwise step runs on the
+group and process 0 writes every file.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def _reduce(argv, op_flag: str, out_base: str, device) -> int:
                 dst = os.path.join(f"{out_base}_{k}",
                                    "copy_" + os.path.basename(l1))
                 sys.stderr.write(f"cp {l1} {dst}\n")
-                shutil.copy(l1, dst)
+                _copy(l1, dst)
                 break
             l2 = files[i + 1]
             out = os.path.join(f"{out_base}_{k}", f"{i}_{i + 1}")
@@ -64,6 +65,20 @@ def _reduce(argv, op_flag: str, out_base: str, device) -> int:
         n = int(n / 2 + 0.5)
         k += 1
     return 0
+
+
+def _copy(src: str, dst: str) -> None:
+    """Copy a carried-over list; in a process group (GT4_DIST_*) process
+    0 copies and the others wait, so no process reads a half-written
+    copy in the next round."""
+    from genometester4_tpu_torch.parallel import multihost
+    if not multihost.is_multiprocess():
+        shutil.copy(src, dst)
+        return
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        shutil.copy(src, dst)
+    multihost.barrier()
 
 
 def main_union(argv=None, device=None) -> int:

@@ -5,9 +5,9 @@ compiles them in seconds; ``torch.utils.cpp_extension.load`` would spend
 minutes on PyTorch's headers. One ``nvcc`` per source runs at the same
 time, then one more links the objects. The shared library lands in
 ``_build/`` beside the package, named by a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one loads at once. Nothing
-is built or loaded at import time: the first kernel launch calls
-``load_library``.
+so an edited source rebuilds and an unchanged one loads at once; processes
+that start together build under a file lock, once. Nothing is built or
+loaded at import time: the first kernel launch calls ``load_library``.
 """
 
 from __future__ import annotations
@@ -95,7 +95,20 @@ def build() -> tuple[str, str]:
     path = library_path()
     if os.path.exists(path):
         return path, ""
+    import fcntl
     os.makedirs(BUILD_DIR, exist_ok=True)
+    # processes that start together (a process group on one host) build
+    # once: the others wait here, then load the published library
+    with open(os.path.join(BUILD_DIR, "libgt4kernels.lock"), "w") as lf:
+        fcntl.flock(lf, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return path, ""
+        return path, _compile(path)
+
+
+def _compile(path: str) -> str:
+    """nvcc's objects, one per source at once, linked into ``path``;
+    returns nvcc's report."""
     nvcc = _nvcc()
     stem = f"{path[:-3]}.{os.getpid()}"
     jobs = []
@@ -126,7 +139,7 @@ def build() -> tuple[str, str]:
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
-    return path, "".join(report)
+    return "".join(report)
 
 
 def load_library() -> ctypes.CDLL:

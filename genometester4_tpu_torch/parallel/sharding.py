@@ -32,7 +32,13 @@ of buckets d, d + S, ... on its own device, the slots of distinct cards
 side by side, and the outputs concatenate in bucket order. JAX packs the
 buckets into [n_dev, cap] padded arrays because shard_map needs one
 shape; here each bucket goes to its slot as its own unpadded slice.
-Multi-process groups (``parallel/multihost``) are not ported.
+
+In a process group (``parallel.multihost.make_global_mesh``) row r is
+process r's slots, and the rows of other processes hold None: each
+process runs its own row's slots, and column j's sources come together on
+process 0 (the one writer), which merges every column; the others return
+empty columns. The overflow flag and the peak bucket fill are the
+group's, so every process retries and adapts alike.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from genometester4_tpu_torch.ops.encode import (SIGN, keys_from_pair,
                                                 u64_from_keys)
 from genometester4_tpu_torch.ops.merge_runs import merge_sorted_runs
 from genometester4_tpu_torch.ops.sortcount import count_unique
+from genometester4_tpu_torch.parallel import multihost
 from genometester4_tpu_torch.pipelines.listmaker import (count_chunk,
                                                          merge_sorted_shards,
                                                          to_host_counts)
@@ -64,8 +71,11 @@ _U32 = 0xFFFFFFFF
 
 @dataclass(frozen=True)
 class Mesh:
-    """dp rows of kp slots; ``devices[r][c]`` is slot (r, c)'s device."""
+    """dp rows of kp slots; ``devices[r][c]`` is slot (r, c)'s device.
+    ``rank``: in a process group, this process's row (the other rows'
+    slots are None); None when every row is this process's."""
     devices: tuple
+    rank: int | None = None
 
     @property
     def shape(self) -> dict:
@@ -75,6 +85,15 @@ class Mesh:
     def slots(self) -> list:
         """Every slot's device, row by row (JAX's flat ("sp",) mesh)."""
         return [d for row in self.devices for d in row]
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process gathers the results and writes them."""
+        return not self.rank
+
+    def local(self, row: int) -> bool:
+        """Whether row ``row``'s slots are this process's."""
+        return self.rank is None or row == self.rank
 
 
 def make_mesh(n_devices: int | None = None, dp: int | None = None,
@@ -227,6 +246,32 @@ def merge_gathered_sources(keys, counts, n, *, S: int, S2: int, cap: int,
             total > tlen)
 
 
+def _gather_column(mesh: Mesh, mine: list, j: int, cap: int, peak: int):
+    """Column j's sources of every process of a group, on process 0:
+    each process sends bucket j of its row's slots (``mine``: their
+    (keys, counts, lengths) buckets), cut to the group's peak fill (what
+    lies past it is zeros), and process 0 lays the dp * kp sources out as
+    the single-process step does: (keys [S, cap], counts [S, cap],
+    lengths) on column j's device. (None, None, None) elsewhere."""
+    width = max(peak, 1)
+    home = mesh.devices[mesh.rank][0]
+    payload = torch.stack([torch.stack([bk[j, :width].to(home),
+                                        bc[j, :width].to(home)])
+                           for bk, bc, _ in mine])
+    lengths = torch.tensor([bn[j] for _, _, bn in mine], dtype=torch.int64)
+    got = multihost.gather_to_writer(payload)
+    got_n = multihost.gather_to_writer(lengths)
+    if got is None:
+        return None, None, None
+    dev = mesh.devices[0][j]
+    rows = torch.cat(got).to(dev)            # [S, 2, width]
+    keys = rows.new_zeros((rows.shape[0], cap))
+    counts = rows.new_zeros((rows.shape[0], cap))
+    keys[:, :width] = rows[:, 0]
+    counts[:, :width] = rows[:, 1]
+    return keys, counts, torch.cat(got_n).tolist()
+
+
 def sharded_count_step(mesh: Mesh, k: int, chunk_bases: int,
                        cap_factor: float = CAP_FACTOR):
     """The counting step of a mesh (JAX's ``sharded_count_step`` and
@@ -238,9 +283,12 @@ def sharded_count_step(mesh: Mesh, k: int, chunk_bases: int,
     fill): per column, its sorted unique (words u64, counts u32) numpy
     arrays, copied to the host as each column finishes so that its device
     buffers are free for the next; columns is None when a bucket or a
-    merge overflowed.
+    merge overflowed (anywhere in a group). On a group's mesh ``fn`` runs
+    this process's row, and the columns of processes but 0 are empty.
     """
     dp, kp = mesh.shape["dp"], mesh.shape["kp"]
+    if kp & (kp - 1):
+        raise ValueError(f"kp={kp} is not a power of 2")
     n_windows = chunk_bases - k + 1
     cap_soft = max(1, int(cap_factor * max(1, n_windows // kp)))
     # a bucket never holds more than its slot's windows
@@ -256,33 +304,50 @@ def sharded_count_step(mesh: Mesh, k: int, chunk_bases: int,
 
     def fn(blocks: np.ndarray):
         buckets = {}
-        peak = 0
+        peak = ovf = 0
         for r in range(dp):
             for c in range(kp):
+                if ovf or not mesh.local(r):
+                    continue
                 codes = torch.from_numpy(blocks[r, c]).to(mesh.devices[r][c])
                 keys, counts = count_chunk(codes, k)
                 del codes
                 bk, bc, bn, ovf = _route_by_prefix(keys, counts, k, kp, cap)
                 del keys, counts
-                if ovf:
-                    return None, 0
                 buckets[r, c] = (bk, bc, bn)
                 peak = max(peak, max(bn))
-        sources = [buckets[r, c] for r in range(dp) for c in range(kp)]
+        if mesh.rank is not None:
+            ovf, peak = multihost.all_max([int(ovf), peak])
+        if ovf:
+            return None, 0
+        sources = [buckets[s] for s in sorted(buckets)]   # slot order
         columns = []
+        ovf = False
         for j in range(kp):
-            dev = mesh.devices[0][j]
-            keys = torch.stack([bk[j].to(dev) for bk, _, _ in sources])
-            counts = torch.stack([bc[j].to(dev) for _, bc, _ in sources])
+            if mesh.rank is None:
+                dev = mesh.devices[0][j]
+                keys = torch.stack([bk[j].to(dev) for bk, _, _ in sources])
+                counts = torch.stack([bc[j].to(dev) for _, bc, _ in sources])
+                n = [bn[j] for _, _, bn in sources]
+            else:
+                keys, counts, n = _gather_column(mesh, sources, j, cap, peak)
+            if keys is None or ovf:   # not the writer, or already failed
+                continue
             mk, mc, n_uniq, ovf = merge_gathered_sources(
-                keys, counts, [bn[j] for _, _, bn in sources], S=S, S2=S2,
-                cap=cap, cap2=cap2, merge_cap=merge_cap)
+                keys, counts, n, S=S, S2=S2, cap=cap, cap2=cap2,
+                merge_cap=merge_cap)
             del keys, counts
             if ovf:
-                return None, 0
+                continue
             columns.append((u64_from_keys(mk[:n_uniq]),
                             to_host_counts(mc[:n_uniq])))
             del mk, mc
+        if mesh.rank is not None:
+            ovf = multihost.all_max([int(ovf)])[0]
+        if ovf:
+            return None, 0
+        if not mesh.writer:
+            columns = [(np.empty(0, np.uint64), np.empty(0, np.uint32))] * kp
         return columns, peak
 
     return fn, cap * kp * dp
@@ -301,7 +366,8 @@ def iter_count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
     carried factor) and, after each step, shrinks to 1.5x the peak bucket
     fill once that is below the factor / 1.3 (floor 0.02), storing it in
     ``adapt_state`` for the caller's next slab. Per column, the steps'
-    results merge with ``merge_sorted_shards``.
+    results merge with ``merge_sorted_shards``. On a group's mesh only
+    process 0 yields; the others count their rows and yield nothing.
     """
     dp, kp = mesh.shape["dp"], mesh.shape["kp"]
     n_dev = dp * kp
@@ -319,8 +385,9 @@ def iter_count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
     for gi in range(0, len(starts), n_dev):
         blocks = np.full((n_dev, chunk_bases), 255, np.uint8)
         for bi, s in enumerate(starts[gi:gi + n_dev]):
-            chunk = codes[s:s + chunk_bases]
-            blocks[bi, :len(chunk)] = chunk
+            if mesh.local(bi // kp):   # a group fills its own row only
+                chunk = codes[s:s + chunk_bases]
+                blocks[bi, :len(chunk)] = chunk
         blocks = blocks.reshape(dp, kp, chunk_bases)
         columns, peak = fn(blocks)
         while columns is None:
@@ -336,6 +403,8 @@ def iter_count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
                 adapt_state["cap_factor"] = cap_factor
         shard_results.append(columns)
 
+    if not mesh.writer:
+        return
     # prefix columns are disjoint ascending word ranges: merging each
     # column's step results in turn streams the globally sorted list
     for s in range(kp):
@@ -385,8 +454,9 @@ def sharded_pair_ops(words1, counts1, words2, counts2, mesh: Mesh, ops,
     slot, dealt round-robin over the slots; each part aligns once on its
     slot's device, and that table feeds every
     requested op (the reference zipper's one pass to four outputs,
-    src/glistcompare.c:843-905). Returns {op: (words, counts)}, sorted.
-    ``rule`` is an ``ops.setops`` rule.
+    src/glistcompare.c:843-905). Returns {op: (words, counts)}, sorted
+    (on a group's mesh, on process 0; the others' are empty). ``rule``
+    is an ``ops.setops`` rule.
     """
     from genometester4_tpu_torch.pipelines import listcompare
     ops = list(ops)

@@ -1,7 +1,6 @@
 """gmer_counter: count DB k-mers in sequencing reads, and build KATK's read
 index (``--compile_index``). Port of
-``genometester4_tpu/pipelines/gmercount.py`` without its multi-process
-branch.
+``genometester4_tpu/pipelines/gmercount.py``.
 
 Reference pipeline (src/gmer_counter.c:625-872): the FASTA reader emits
 canonical words into 10 Mi-word tables; worker threads walk the trie per
@@ -30,7 +29,12 @@ round-robin over the mesh's slots: each runs ``count_step`` on its
 slot's device, against that device's copy of the DB's keys and into that
 device's accumulator; ``finalize`` sums the accumulators on slot 0's
 device (JAX's per-round ``psum``, ``gmercount.py:119-162``, once at the
-end). Index mode stays on one device, as in JAX.
+end). Index mode stays on one device, as in JAX. In a process group
+(GT4_DIST_*, ``parallel.multihost``) count mode takes the group's mesh
+instead, over the host route too: chunk g goes to global slot g mod
+(dp * kp), each process counts its own, and ``finalize`` sums the count
+vector (and ``--stats``' valid windows) over the group, JAX's one psum;
+index mode stays per process.
 
 Index mode, per chunk: kernel A's forward windows, their canonical words
 (``ops.encode.canonical``), ``dir = canonical != forward``, the lookup of
@@ -70,6 +74,7 @@ from genometester4_tpu_torch.ops.encode import SIGN, flag_key, keys_from_u64
 from genometester4_tpu_torch.ops.kmers import extract_kmers_best
 from genometester4_tpu_torch.ops.lookup import batched_bounds, batched_lookup
 from genometester4_tpu_torch.ops.sortcount import sort_compact
+from genometester4_tpu_torch.parallel import multihost
 from genometester4_tpu_torch.pipelines.listmaker import (forward_windows,
                                                          pow2_cap)
 from genometester4_tpu_torch.utils.device import resolve_device
@@ -167,7 +172,12 @@ class DBCounter:
         self._slot_ok = ok
         self._slot_of_unique = np.zeros(n, np.int64)
         self._slot_of_unique[ok] = db.flat_slot(node[ok], kmer[ok])
-        self._host = os.environ.get("GT4_TPU_COUNT_IMPL") == "host"
+        # a process group overrides the host route in count mode
+        group = (not build_index and mesh is None
+                 and multihost.is_multiprocess())
+        self._host = (os.environ.get("GT4_TPU_COUNT_IMPL") == "host"
+                      and not group)
+        self._grouped = False
         if self._host:
             # the native kernels read the sorted DB from host memory
             self._hw = np.ascontiguousarray(db.sorted_words, np.uint64)
@@ -180,13 +190,17 @@ class DBCounter:
             self._dev = resolve_device(device)
             self._slots = [self._dev]
             if not build_index:
-                if mesh is None:
+                if group:
+                    mesh = multihost.group_mesh(self._dev)
+                elif mesh is None:
                     from genometester4_tpu_torch.pipelines.listmaker import \
                         _default_mesh
                     mesh = _default_mesh(self._dev, True)
                 if mesh is not None:
+                    # another process's slots are None
+                    self._grouped = mesh.rank is not None
                     self._slots = mesh.slots
-                    self._dev = self._slots[0]
+                    self._dev = next(d for d in self._slots if d is not None)
             self._db_keys = keys_from_u64(db.sorted_words).to(self._dev)
             if build_index:
                 # u32 codes as their int32 bit patterns
@@ -195,7 +209,8 @@ class DBCounter:
                     .view(np.int32)).to(self._dev)
             else:
                 # per device of the slots: the DB's keys, an accumulator
-                self._keys = {d: self._db_keys.to(d) for d in self._slots}
+                self._keys = {d: self._db_keys.to(d) for d in self._slots
+                              if d is not None}
                 self._accs = {d: torch.zeros(n, dtype=torch.int64, device=d)
                               for d in self._keys}
                 self._next_slot = 0
@@ -457,6 +472,8 @@ class DBCounter:
         for start in range(0, max(n - (k - 1), 1), step):
             dev = self._slots[self._next_slot]
             self._next_slot = (self._next_slot + 1) % len(self._slots)
+            if dev is None:   # another process's chunk
+                continue
             n_valid = count_step(
                 self._upload(codes[start:start + self.chunk_bases], dev), k,
                 self._keys[dev], self._accs[dev], self._zero_word)
@@ -473,8 +490,15 @@ class DBCounter:
         if self._host:
             totals = self._host_acc
         else:
-            totals = (sum(acc.to(self._dev) for acc in self._accs.values())
-                      .cpu().numpy().view(np.uint64))
+            total = sum(acc.to(self._dev) for acc in self._accs.values())
+            if self._grouped:   # JAX's psum, and its global n_valid
+                multihost.all_sum_(total)
+                if self.collect_stats:
+                    st = self.result.stats
+                    n = torch.tensor([st.n_kmers_total])
+                    multihost.all_sum_(n)
+                    st.n_kmers_total = int(n)
+            totals = total.cpu().numpy().view(np.uint64)
         ok = self._slot_ok
         if not ok.all() and totals[~ok].any():
             sys.stderr.write(

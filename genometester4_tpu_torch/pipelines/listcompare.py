@@ -22,8 +22,14 @@ semantics). Routes of ``compare_pair`` and ``compare_multi``:
   zipper, bucketed over threads on large inputs, and a k-way merge),
   as in JAX.
 
-The JAX package's placement cost model (``auto``) and its multi-process
-branches are not ported. ``compare_pair_mm`` (``-mm``) and
+* a process group (GT4_DIST_*, ``parallel.multihost``): the mesh route
+  over the group's slots, each process running its own slots' parts and
+  sending their outputs to process 0, which alone writes; it overrides
+  the host route, as in JAX, and every process returns after the files
+  are published.
+
+The JAX package's placement cost model (``auto``) is not ported.
+``compare_pair_mm`` (``-mm``) and
 ``make_subset`` (``-ss``) are host code in JAX too and stay so. torch is
 imported only when a device route runs.
 """
@@ -468,8 +474,9 @@ def _placement(word_lists, device, mesh, target):
     """The device route's parts: (each list's ``bucket_cuts``, the slots).
     Buckets hold at most ``target`` + N words and number at least one a
     slot; part p goes to slot p mod len(slots). The slots are those of
-    ``mesh`` (given, or by JAX's rule: more than one CUDA card and
-    GT4_TPU_MESH != 0, ``make_mesh()`` over all of them), else
+    ``mesh`` (on a group's mesh, ``parallel.multihost``, the slots of
+    other processes are None), else of JAX's rule (more than one CUDA
+    card and GT4_TPU_MESH != 0, ``make_mesh()`` over all of them), else
     ``device`` alone."""
     if mesh is None:
         from genometester4_tpu_torch.pipelines.listmaker import _default_mesh
@@ -482,25 +489,51 @@ def _placement(word_lists, device, mesh, target):
     return bucket_cuts(word_lists, target, len(slots)), slots
 
 
-def _run_parts(run, n_parts, slots):
-    """``run(p, slots[p % len(slots)])`` for every part p, yielded in part
-    order. One window of len(slots) parts at a time: its parts of distinct
+def _run_parts(run, n_parts, slots, host=None):
+    """``host(run(p, slots[p % len(slots)]))`` for every part p, yielded
+    in part order; ``run`` returns a part's outputs (on a group's mesh,
+    device tensors or None), ``host`` copies them back (None: as they
+    are). One window of len(slots) parts at a time: its parts of distinct
     devices run side by side, a thread a device (torch lets go of the GIL
     while a card works), those of one device one after another, so a
-    device holds one part at once."""
+    device holds one part at once. On a group's mesh (the slots of other
+    processes are None) a process runs its own slots' parts; the others
+    send theirs to process 0, which yields every part in the same order,
+    None for one that holds nothing, and is the only one to yield."""
     from concurrent.futures import ThreadPoolExecutor
-    devices = list(dict.fromkeys(slots))
+
+    from genometester4_tpu_torch.parallel import multihost
+    if host is None:
+        def host(out):
+            return out
     width = len(slots)
+    devices = list(dict.fromkeys(d for d in slots if d is not None))
+    send, per = False, width
+    if None in slots:
+        import torch.distributed as dist
+        send, per = dist.get_rank() != 0, width // dist.get_world_size()
 
     def on(dev, window):
-        return [(p, run(p, dev)) for p in window if slots[p % width] == dev]
+        out = []
+        for p in window:
+            if slots[p % width] == dev:
+                got = run(p, dev)
+                out.append((p, got if send or got is None else host(got)))
+        return out
     with ThreadPoolExecutor(len(devices)) as pool:
         for lo in range(0, n_parts, width):
             window = range(lo, min(lo + width, n_parts))
             done = dict(kv for f in [pool.submit(on, d, window)
                                      for d in devices] for kv in f.result())
             for p in window:
-                yield done[p]
+                if p not in done:       # another process's part
+                    if not send:
+                        got = multihost.recv_from(p % width // per)
+                        yield host(got) if got else None
+                elif send:
+                    multihost.send_to_writer(done.pop(p) or [])
+                else:
+                    yield done.pop(p)
 
 
 def pair_parts(w1, c1, w2, c2, ops, rule="default", cutoff=1,
@@ -511,7 +544,8 @@ def pair_parts(w1, c1, w2, c2, ops, rule="default", cutoff=1,
     keys, where one aligned table (``ops.setops.pair_align``) feeds every
     op. Yields, in part order and skipping parts that hold nothing, {op:
     (words u64, counts u32)} on the host; the parts concatenate into the
-    whole lists' results. ``rule`` is an ``ops.setops`` rule."""
+    whole lists' results (on a group's mesh, on process 0 only).
+    ``rule`` is an ``ops.setops`` rule."""
     from genometester4_tpu_torch.ops import setops
     (cuts1, cuts2), slots = _placement([w1, w2], device, mesh, target)
 
@@ -521,11 +555,14 @@ def pair_parts(w1, c1, w2, c2, ops, rule="default", cutoff=1,
             return None
         aligned = setops.pair_align(*_to_device(w1[a1:z1], c1[a1:z1], dev),
                                     *_to_device(w2[a2:z2], c2[a2:z2], dev))
-        return {op: _to_host(*setops.apply_pair_op(
+        return [t for op in ops for t in setops.apply_pair_op(
             *aligned, op=op, rule=rule, cutoff=cutoff,
-            count_override=count_override, subtract=subtract))
-            for op in ops}
-    for out in _run_parts(run, len(cuts1) - 1, slots):
+            count_override=count_override, subtract=subtract)]
+
+    def host(ts):
+        return {op: _to_host(ts[2 * i], ts[2 * i + 1])
+                for i, op in enumerate(ops)}
+    for out in _run_parts(run, len(cuts1) - 1, slots, host):
         if out is not None:
             yield out
 
@@ -546,12 +583,13 @@ def multi_parts(word_lists, count_lists, op, rule="default", cutoff=1,
                  for w, n, c in zip(word_lists, count_lists, cuts)]
         if not any(len(w) for w, _ in parts):
             return None
-        return _to_host(*setops.apply_multi_op(
+        return list(setops.apply_multi_op(
             *_to_device(np.concatenate([w for w, _ in parts]),
                         np.concatenate([n for _, n in parts]), dev),
             n_lists=len(word_lists), op=op, rule=rule, cutoff=cutoff,
             count_override=count_override))
-    for out in _run_parts(run, len(cuts[0]) - 1, slots):
+    for out in _run_parts(run, len(cuts[0]) - 1, slots,
+                          lambda ts: _to_host(*ts)):
         if out is not None:
             yield out
 
@@ -572,9 +610,11 @@ def compare_pair(list1: str, list2: str, ops: list[str], outputname: str = "out"
     h1, w1, c1 = read_word_source(list1)
     h2, w2, c2 = read_word_source(list2)
     wlen = h1.word_length
+    mesh = _group_mesh(device, mesh)
+    writer = mesh is None or mesh.writer
     sinks = {op: _OpSink(op, _op_filename(outputname, wlen, op), wlen,
-                         count_only) for op in ops}
-    if _host_route():
+                         count_only or not writer) for op in ops}
+    if _host_route() and not _grouped(mesh):
         _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
                            count_override, subtract)
     else:
@@ -588,7 +628,30 @@ def compare_pair(list1: str, list2: str, ops: list[str], outputname: str = "out"
     for op, sink in sinks.items():
         sink.close()
         results[op] = (sink.n_words, sink.total_count)
+    _publish(mesh)
     return results
+
+
+def _group_mesh(device, mesh):
+    """``mesh``, or a process group's mesh (GT4_DIST_*) when there is
+    one: it overrides the host route and the single-process placement,
+    as in JAX."""
+    from genometester4_tpu_torch.parallel import multihost
+    if mesh is None and multihost.is_multiprocess():
+        from genometester4_tpu_torch.utils.device import resolve_device
+        mesh = multihost.group_mesh(resolve_device(device))
+    return mesh
+
+
+def _grouped(mesh) -> bool:
+    return mesh is not None and mesh.rank is not None
+
+
+def _publish(mesh) -> None:
+    """In a group, no process returns before process 0's files exist."""
+    if _grouped(mesh):
+        from genometester4_tpu_torch.parallel import multihost
+        multihost.barrier()
 
 
 def _host_compare_multi(sink, data, op, rule, cutoff, count_override, debug):
@@ -693,9 +756,11 @@ def compare_multi(paths: list[str], op: str, outputname: str = "out",
             "NUMBER allowed)\n" % RULE_NUMBERS[eff])
         raise SystemExit(1)
 
+    mesh = _group_mesh(device, mesh)
+    writer = mesh is None or mesh.writer
     sink = _OpSink(op, _op_filename(outputname, wlen, op), wlen,
-                   count_only, debug=debug)
-    if _host_route():
+                   count_only or not writer, debug=debug if writer else 0)
+    if _host_route() and not _grouped(mesh):
         _host_compare_multi(sink, data, op, rule, cutoff, count_override,
                             debug)
         sink.close()
@@ -709,6 +774,7 @@ def compare_multi(paths: list[str], op: str, outputname: str = "out",
         if len(w):
             sink.append(w, c)
     sink.close()
+    _publish(mesh)
     return {op: (sink.n_words, sink.total_count)}
 
 

@@ -14,7 +14,10 @@ Port of the device branch of ``genometester4_tpu/pipelines/listmaker.py``
 With a mesh (``make_list(mesh=...)``, or by default with more than one
 CUDA card, as in JAX), each slab is counted by the mesh route of
 ``parallel.sharding`` instead of ``count_chunks``; the merge and the
-writer are the same.
+writer are the same. In a process group (GT4_DIST_*,
+``parallel.multihost``) the mesh is the group's: every process counts its
+row, only process 0 merges, spills, prints ``-D`` and writes, and no
+process returns before the file is published.
 
 ``make_index`` (glistmaker ``--index``) runs, per 2^25-code chunk, kernel
 A's forward windows, their canonical words and directions, and a
@@ -25,7 +28,7 @@ route (one rolling C extraction per slab).
 
 Output bytes are identical to the JAX package's. Not ported here: the
 host-native route of ``make_list`` and the cost model of both (``device``
-is explicit instead), and multihost counting.
+is explicit instead).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from genometester4_tpu_torch.ops.encode import (SIGN, canonical,
                                                 word_mask)
 from genometester4_tpu_torch.ops.kmers import extract_kmers_best
 from genometester4_tpu_torch.ops.sortcount import count_unique, sort_compact
+from genometester4_tpu_torch.parallel import multihost
 from genometester4_tpu_torch.pipelines.listcompare import bucket_cuts
 from genometester4_tpu_torch.utils.device import resolve_device
 
@@ -188,8 +192,12 @@ def make_list(input_files, word_length: int, output_path: str,
     their plain PyTorch versions; there is no automatic fallback.
     ``mesh``: a ``parallel.sharding.Mesh`` counts every slab on it (then
     ``chunk_bases`` is the mesh's own; canonical k-mers only). Without
-    one, a CUDA ``device`` with more than one visible card builds
-    ``make_mesh()`` unless GT4_TPU_MESH=0, as the JAX package does.
+    one, a process group (GT4_DIST_*) counts on its global mesh
+    (``device``'s card, or every visible card for a plain ``cuda``), and
+    otherwise a CUDA ``device`` with more than one visible card builds
+    ``make_mesh()`` unless GT4_TPU_MESH=0, as the JAX package does. On a
+    group's mesh only process 0 writes (the others return None), after
+    which every process passes a barrier.
     ``debug`` > 0 prints per-phase counters to stderr. ``spill_bytes``
     (default 6 GiB, env GT4_SPILL_BYTES) is the in-RAM budget of counted
     shards before they spill to tmp .list files (dir GT4_TPU_TMPDIR)
@@ -197,10 +205,15 @@ def make_list(input_files, word_length: int, output_path: str,
     the -c/--max cutoffs, applied after the merge.
     """
     dev = resolve_device(device)
+    if mesh is None and canonical and multihost.is_multiprocess():
+        mesh = multihost.group_mesh(dev)
     if mesh is None:
         mesh = _default_mesh(dev, canonical)
     elif not canonical:
         raise ValueError("the mesh route counts canonical k-mers only")
+    group = mesh is not None and mesh.rank is not None
+    if group:   # the merge runs on this process's first slot
+        dev = mesh.devices[mesh.rank][0]
     if mesh is not None:
         from genometester4_tpu_torch.parallel.sharding import \
             count_kmers_sharded
@@ -259,25 +272,29 @@ def make_list(input_files, word_length: int, output_path: str,
                 n_words_in += max(0, meta.total_bases - (word_length - 1)
                                   * meta.n_records)
         t_merge0 = time.time()
-        cut = min_count > 1 or max_count != 0xFFFFFFFF
-        with ListWriter(output_path, word_length) as w:
-            for words, counts in merge_sorted_shards(shards, device=dev):
-                if cut:
-                    keep = counts >= np.uint32(min_count)
-                    if max_count != 0xFFFFFFFF:
-                        keep &= counts <= np.uint32(max_count)
-                    words, counts = words[keep], counts[keep]
-                w.append(words, counts)
-        hdr = ListHeader(word_length, w.n_words, w.total_count)
-        if debug:
-            _print_phase_debug(hdr, n_words_in, t_parse, t_count,
-                               time.time() - t_merge0)
+        hdr = None
+        if mesh is None or mesh.writer:   # in a group, process 0 writes
+            cut = min_count > 1 or max_count != 0xFFFFFFFF
+            with ListWriter(output_path, word_length) as w:
+                for words, counts in merge_sorted_shards(shards, device=dev):
+                    if cut:
+                        keep = counts >= np.uint32(min_count)
+                        if max_count != 0xFFFFFFFF:
+                            keep &= counts <= np.uint32(max_count)
+                        words, counts = words[keep], counts[keep]
+                    w.append(words, counts)
+            hdr = ListHeader(word_length, w.n_words, w.total_count)
+            if debug:
+                _print_phase_debug(hdr, n_words_in, t_parse, t_count,
+                                   time.time() - t_merge0)
     finally:
         for tmp in tmp_files:
             try:
                 os.unlink(tmp)
             except OSError:
                 pass
+    if group:
+        multihost.barrier()   # no process returns before the file exists
     return hdr
 
 

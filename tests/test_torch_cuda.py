@@ -957,3 +957,75 @@ def test_gmer_counter_default_mesh_across_cards(cards, tmp_path, monkeypatch,
             assert extract_kmers_cuda.launches - before == len(seen) >= 8
             assert {d for d in seen} == {torch.device(c) for c in cards}
     assert runs["cuda"] == runs["cpu"] and runs["cpu"][0] == 0
+
+
+def _group_inputs(path):
+    """A 400 kbp FASTA, two 25-mer lists (counts that wrap under ADD) and
+    gmer_counter's database and reads in ``path``; each CLI's argv."""
+    from genometester4_tpu_torch.formats.list_format import write_list
+    rng = np.random.default_rng(31)
+    seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), 400_000,
+                     p=[0.24, 0.25, 0.25, 0.25, 0.01])
+    (path / "in.fa").write_bytes(b">a\n" + seq.tobytes() + b"\n")
+    lists = []
+    for i, (w, c) in enumerate(_word_lists(32, n_lists=2, wrap=True)):
+        lists.append(str(path / f"l{i}_25.list"))
+        write_list(lists[-1], 25, w, c)
+    _gmer_inputs(path, 25, seed=33)
+    return {"glistmaker": [str(path / "in.fa"), "-w", "25", "-o", "g"],
+            "glistcompare": lists + ["-u", "-i", "-d", "-dd", "-o", "c"],
+            "gmer_counter": ["-db", str(path / "db.txt"), "--stats",
+                             str(path / "reads.fq")]}
+
+
+@pytest.mark.parametrize("nprocs,across", [(2, False), (2, True),
+                                           (4, True)],
+                         ids=["one_card_2", "cards_2", "cards_4"])
+def test_group_equals_one_process(cuda, tmp_path, monkeypatch, nprocs,
+                                  across):
+    """glistmaker, glistcompare and gmer_counter on a process group
+    (``parallel.multihost``), each process on its own card
+    (CUDA_VISIBLE_DEVICES; NCCL) or every process on card 0 (gloo, staged
+    through pinned memory): process 0's files and stdout equal one
+    process's on one card, the others print nothing, and kernels A and B
+    launch in every process."""
+    import contextlib
+    import io
+
+    from genometester4_tpu_torch.cli import (glistcompare, glistmaker,
+                                             gmer_counter)
+    from genometester4_tpu_torch.tools.group_run import launch
+    if across and torch.cuda.device_count() < nprocs:
+        pytest.skip(f"needs {nprocs} CUDA cards, found "
+                    f"{torch.cuda.device_count()}")
+    mains = {"glistmaker": glistmaker.main, "glistcompare": glistcompare.main,
+             "gmer_counter": gmer_counter.main}
+    monkeypatch.setenv("GT4_TPU_MESH", "0")
+    for tool, argv in _group_inputs(tmp_path).items():
+        one, grp = tmp_path / f"{tool}_one", tmp_path / f"{tool}_group"
+        one.mkdir()
+        grp.mkdir()
+        monkeypatch.chdir(one)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert mains[tool](argv, device="cuda") == 0
+        monkeypatch.chdir(tmp_path)
+        spec = {"tool": tool, "argv": argv,
+                "chunk_bases": 4096 if tool == "gmer_counter" else None}
+        envs = [{"CUDA_VISIBLE_DEVICES": str(i if across else 0)}
+                for i in range(nprocs)]
+        res = launch([spec] * nprocs, [str(grp)] * nprocs, envs,
+                     timeout=600)
+        for rank, (rc, o, e, rep) in enumerate(res):
+            assert rc == 0, f"{tool} process {rank}: {e[-3000:]}"
+            assert rep["transport"] == ("nccl" if across else "gloo")
+            if tool != "glistcompare":
+                assert rep["launches"]["extract"] > 0, (tool, rank)
+            if tool == "glistmaker":
+                assert rep["launches"]["run_marks"] > 0, rank
+            assert rank == 0 or o == b""
+        assert res[0][1].decode() == out.getvalue(), tool
+        want = {p.name: p.read_bytes() for p in one.iterdir()}
+        assert {p.name: p.read_bytes() for p in grp.iterdir()} == want
+        assert len(want) == {"glistmaker": 1, "glistcompare": 4,
+                             "gmer_counter": 0}[tool]

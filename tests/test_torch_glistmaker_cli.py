@@ -140,8 +140,13 @@ def test_debug_header_lines_equal(tmp_path, inputs, route):
 
 
 def test_refuses_a_process_group(tmp_path, inputs, monkeypatch):
+    """GT4_DIST_NPROCS=2 without GT4_DIST_COORD is no group, as in JAX
+    (``multihost.distributed_env``): the CLI runs as one process and
+    writes JAX's .list."""
     monkeypatch.setenv("GT4_DIST_NPROCS", "2")
-    rc, out, err = _run(port_cli.main, [str(inputs / "in.fa"), "-w", "12"],
-                        tmp_path, device="cpu")
-    assert rc == 1 and out == "" and err.count("\n") == 1
-    assert "GT4_DIST_NPROCS=2" in err and not list(tmp_path.iterdir())
+    monkeypatch.delenv("GT4_DIST_COORD", raising=False)
+    monkeypatch.setenv("GT4_TPU_MESH", "0")
+    rj, fj, rp, fp = _both(tmp_path, [str(inputs / "in.fa"), "-w", "12"])
+    assert rp == rj and rj[0] == 0
+    assert list(fp) == ["out_12.list"] and fp == fj
+    assert not torch.distributed.is_initialized()

@@ -425,13 +425,14 @@ def test_count_step_chunk_seams_and_launches(data, monkeypatch):
     assert extract_cuda.extract_kmers_cuda.launches == before
 
 
-def test_refuses_a_process_group(monkeypatch, tmp_path):
-    """More than one process (GT4_DIST_NPROCS=2): one line on stderr,
-    nothing on stdout, before any file is read (the database named does
-    not exist, and its error does not show)."""
+def test_refuses_a_process_group(monkeypatch, data):
+    """GT4_DIST_NPROCS=2 without GT4_DIST_COORD is no group, as in JAX
+    (``multihost.distributed_env``): the CLI counts as one process and
+    prints what JAX's CLI prints."""
     monkeypatch.setenv("GT4_DIST_NPROCS", "2")
-    rc, out, err = _run(port_cli.main, tmp_path,
-                        ["-db", "missing.txt", "reads.fq"], device="cpu")
-    assert rc == 1 and out == "" and err.count("\n") == 1
-    assert err.startswith("gmer_counter: GT4_DIST_NPROCS=2")
-    assert not list(tmp_path.iterdir())
+    monkeypatch.delenv("GT4_DIST_COORD", raising=False)
+    args = ["-db", "db25.txt", "--stats", "reads.fq"]
+    want = run_jax(monkeypatch, data, args)
+    got = run_port(monkeypatch, data, args)
+    assert got == want and want[0] == 0 and want[1].count("\n") > 60
+    assert not torch.distributed.is_initialized()

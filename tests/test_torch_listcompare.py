@@ -314,9 +314,15 @@ def test_cli_multi_with_empty_input(fast_lists, tmp_path, route):
         assert rp == rj and fp == fj and rj[0] == 0
 
 
-def test_cli_refuses_a_process_group(monkeypatch, tmp_path):
+def test_cli_refuses_a_process_group(monkeypatch, tmp_path, inputs):
+    """GT4_DIST_NPROCS=2 without GT4_DIST_COORD is no group, as in JAX
+    (``multihost.distributed_env``): the CLI runs as one process, and its
+    files and output equal JAX's."""
     monkeypatch.setenv("GT4_DIST_NPROCS", "2")
-    rc, out, err = _run(port_cli.main, ["a.list", "b.list", "-u"], tmp_path,
-                        device="cpu")
-    assert rc == 1 and out == "" and err.count("\n") == 1
-    assert "GT4_DIST_NPROCS=2" in err and not list(tmp_path.iterdir())
+    monkeypatch.delenv("GT4_DIST_COORD", raising=False)
+    monkeypatch.setenv("GT4_TPU_MESH", "0")
+    _, paths, _ = inputs
+    rj, fj, rp, fp = _cli_both(tmp_path, [paths[0], paths[1], "-u", "-i",
+                                          "-D"])
+    assert rp == rj and rj[0] == 0 and len(fj) == 2 and fp == fj
+    assert not torch.distributed.is_initialized()

@@ -215,8 +215,8 @@ def test_compare_pair_takes_the_default_mesh(tmp_path, monkeypatch, lists):
                         or bucket_cuts(w, t, n))
     run_parts = port_lc._run_parts
     monkeypatch.setattr(port_lc, "_run_parts",
-                        lambda run, n, slots: parts.append((n, len(slots)))
-                        or run_parts(run, n, slots))
+                        lambda run, n, slots, *a: parts.append(
+                            (n, len(slots))) or run_parts(run, n, slots, *a))
     port_lc.compare_pair(paths[0], paths[1], ["union"], str(tmp_path / "a"),
                          device="cpu", bucket_target=100)
     port_lc.compare_multi(paths, "union", str(tmp_path / "b"), device="cpu",

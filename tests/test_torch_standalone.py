@@ -10,7 +10,9 @@ gassembler CLI on a small KATK fixture, its glistmaker CLI (``.list`` and
 CLI (a dump, ``-s``, ``-l``), its gmer_caller CLI and its six extra CLIs
 (gdistribution, kmer_predictor, make_union and make_intersection,
 generate_vcf, katk2vcf, repeats), all on the CPU, and then finds neither
-package in ``sys.modules``. Subprocesses check that the argument errors of
+package in ``sys.modules``; two more form a process group
+(``parallel.multihost``) and run glistmaker and glistcompare on it, with
+the same finding. Subprocesses check that the argument errors of
 the list CLIs, glistcompare's numpy-free fast paths, glistquery's
 statistics and host routes, gmer_caller's host route and five of the
 extra CLIs (all but make_union, which runs glistcompare's device route)
@@ -432,3 +434,52 @@ def test_extra_clis_import_no_torch(tmp_path):
     printed = [n > 0 for _, n in got["rcs"]]
     assert printed == [True, False, True, True, True, True, True, False,
                        True, True]
+
+
+_GROUP = r'''
+import contextlib, io, json, sys
+from genometester4_tpu_torch.parallel import multihost
+from genometester4_tpu_torch.cli.glistcompare import main as glistcompare
+from genometester4_tpu_torch.cli.glistmaker import main as glistmaker
+fa = sys.argv[1]
+with contextlib.redirect_stdout(io.StringIO()), \
+        contextlib.redirect_stderr(io.StringIO()):
+    rcs = [glistmaker([fa, "-w", "11", "-o", "a"], device="cpu"),
+           glistcompare(["a_11.list", "a_11.list", "-u", "-o", "u"],
+                        device="cpu")]
+mods = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("genometester4_tpu", "jax", "jaxlib"))
+print(json.dumps({"rcs": rcs, "transport": multihost.transport(),
+                  "modules": mods}))
+'''
+
+
+def test_group_runs_without_the_jax_package(tmp_path):
+    """Two fresh processes form a gloo group (``parallel.multihost``) and
+    run the glistmaker and glistcompare CLIs on it: neither loads a module
+    of jax or of the JAX package, and process 0 writes."""
+    from genometester4_tpu_torch.tools.group_run import free_port
+    rng = np.random.default_rng(13)
+    seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), 5000,
+                     p=[0.24, 0.25, 0.25, 0.25, 0.01])
+    (tmp_path / "in.fa").write_bytes(b">a\n" + seq.tobytes() + b"\n")
+    coord = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GROUP, str(tmp_path / "in.fa")],
+        cwd=str(tmp_path), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": str(REPO),
+                        "GT4_DIST_COORD": coord, "GT4_DIST_NPROCS": "2",
+                        "GT4_DIST_PROC_ID": str(i),
+                        "GT4_DIST_TIMEOUT": "60"}) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs[0][1] + outs[1][1]
+    for out, _ in outs:
+        assert json.loads(out.splitlines()[-1]) == {
+            "rcs": [0, 0], "transport": "gloo", "modules": []}
+    assert (tmp_path / "a_11.list").exists()
+    assert (tmp_path / "u_11_union.list").exists()
