@@ -173,6 +173,8 @@ import time
 
 import numpy as np
 
+from genometester4_tpu_torch.utils import trace
+
 K = 25
 GENOME_BP = 50_000_000
 N_KERNEL = 1 << 25
@@ -726,19 +728,15 @@ def phase_mesh(torch, fa: str, tmp: str, single: str, single_wall: float):
     """The mesh counting route on the main path's FASTA in both merge
     modes, each .list equal to the single-chip route's. Returns the
     launches of the bitonic run."""
-    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
-    from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
-    from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
     from genometester4_tpu_torch.pipelines.listmaker import make_list
 
-    counters = {"extract": extract_kmers_cuda, "run_marks": run_encode_cuda,
-                "merge_runs": merge_runs_cuda}
+    counters = {"extract": "extract", "run_marks": "run_encode",
+                "merge_runs": "merge_runs"}
     runs = {}
     for mode in ("resort", "bitonic"):
         mesh = mesh_slots()
         out = os.path.join(tmp, f"mesh_{mode}_{K}.list")
-        for fn in counters.values():
-            fn.launches = 0
+        trace.reset()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -750,7 +748,8 @@ def phase_mesh(torch, fa: str, tmp: str, single: str, single_wall: float):
         wall = time.perf_counter() - t0
         for line in phases.getvalue().splitlines():
             log(f"  mesh ({mode}) -D: {line}")
-        runs[mode] = {name: fn.launches for name, fn in counters.items()}
+        runs[mode] = {name: trace.total("launch." + kernel)
+                      for name, kernel in counters.items()}
         same = filecmp.cmp(out, single, shallow=False)
         log(f"mesh path ({mode}): make_list dp={MESH_DP} x "
             f"kp={MESH_SLOTS // MESH_DP} slots on cuda:0, wall {wall:.3f} s "
@@ -913,7 +912,6 @@ def phase_gmercount(torch, path: str, bases: np.ndarray, seed: int) -> int:
     host route in a subprocess. Returns the card route's walls and the
     reference's stderr; the first card run's stdout stays in
     ``path``/GMER_COUNTS for phases 4e and 4f.b."""
-    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
 
     t0 = time.perf_counter()
     write_gmer_db(path, bases, seed)
@@ -935,11 +933,11 @@ def phase_gmercount(torch, path: str, bases: np.ndarray, seed: int) -> int:
     walls = {"card": [], "host": []}
     launches = None
     for route in ("card", "host", "host", "card"):
-        extract_kmers_cuda.launches = 0
+        trace.reset()
         torch.cuda.reset_peak_memory_stats()
         rc, out, err, wall = _port_gmer_counter(torch, path, args,
                                                 route == "card")
-        n_launch = extract_kmers_cuda.launches
+        n_launch = trace.total("launch.extract")
         if launches is None:   # the main path's run
             launches = n_launch
             with open(os.path.join(path, GMER_COUNTS), "wb") as f:
@@ -1014,9 +1012,7 @@ def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
     run, and under "compare" 4c.c's argv, output, card walls and peaks and
     the files of its last card run (4f.a's reference). The reads' .list of
     4c.a stays in ``glist_port`` for phases 4d and 4f."""
-    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
-    from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
-    from genometester4_tpu_torch.pipelines import listcompare, listmaker
+    from genometester4_tpu_torch.pipelines import listcompare
 
     jd, pd = os.path.join(tmp, "glist_jax"), os.path.join(tmp, "glist_port")
     os.makedirs(jd)
@@ -1029,12 +1025,11 @@ def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
         args = [src, "-w", str(K), "-o", name]
         want, ref_wall = _glist_reference(jd, "glistmaker", args,
                                           "GT4_TPU_COUNT_IMPL")
-        extract_kmers_cuda.launches = 0
-        run_encode_cuda.launches = 0
+        trace.reset()
         torch.cuda.reset_peak_memory_stats()
         rc, o, e, wall = _port_glistmaker(torch, pd, args, True)
-        la = {"extract": extract_kmers_cuda.launches,
-              "run_marks": run_encode_cuda.launches}
+        la = {"extract": trace.total("launch.extract"),
+              "run_marks": trace.total("launch.run_encode")}
         mine = os.path.join(pd, f"{name}_{K}.list")
         ref = os.path.join(jd, f"{name}_{K}.list")
         _check_same_run(f"port glistmaker {name}", (rc, o, e), want,
@@ -1063,37 +1058,33 @@ def phase_glist(torch, tmp: str, fa: str, genome_list: str) -> dict:
     ref_index = os.path.join(jd, f"idx_{K}.index")
     log(f"glist 4c.b reference: JAX host route --index main() wall "
         f"{ref_wall:.3f} s, {os.path.getsize(ref_index)} bytes")
-    make_index = listmaker.make_index
     walls = {"card": [], "host": []}
-    try:
-        for route in ("card", "host", "host", "card"):
-            stages = {}
-
-            def timed(*a, **kw):
-                return make_index(*a, stages=stages, **kw)
-            listmaker.make_index = timed
-            extract_kmers_cuda.launches = 0
-            torch.cuda.reset_peak_memory_stats()
+    for route in ("card", "host", "host", "card"):
+        trace.reset()
+        torch.cuda.reset_peak_memory_stats()
+        with trace.recording():
             rc, o, e, wall = _port_glistmaker(torch, pd, args,
                                               route == "card")
-            n = extract_kmers_cuda.launches
-            mine = os.path.join(pd, f"idx_{K}.index")
-            _check_same_run(f"port glistmaker --index ({route} route)",
-                            (rc, o, e), want, [(mine, ref_index)])
-            check((n > 0) == (route == "card"),
-                  f"--index {route} route launched kernel A {n} times")
-            if route == "card" and "index_extract" not in out:
-                out["index_extract"] = n
-            walls[route].append(wall)
-            log(f"glist 4c.b port --index {route} route: main() wall "
-                f"{wall:.3f} s, peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-                f"kernel A launches {n}; stages " + "; ".join(
-                    f"{k} {v:.3f} s" for k, v in stages.items())
-                + "; .index identical to the JAX host route's")
-            os.remove(mine)
-    finally:
-        listmaker.make_index = make_index
+        n = trace.total("launch.extract")
+        # the stages: the spans right under the run's "index" span
+        rows = trace.rows()
+        job = next(r.id for r in rows if r.name == "index")
+        stages = {r.name: r.t1 - r.t0 for r in rows if r.parent == job}
+        mine = os.path.join(pd, f"idx_{K}.index")
+        _check_same_run(f"port glistmaker --index ({route} route)",
+                        (rc, o, e), want, [(mine, ref_index)])
+        check((n > 0) == (route == "card"),
+              f"--index {route} route launched kernel A {n} times")
+        if route == "card" and "index_extract" not in out:
+            out["index_extract"] = n
+        walls[route].append(wall)
+        log(f"glist 4c.b port --index {route} route: main() wall "
+            f"{wall:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"kernel A launches {n}; stages " + "; ".join(
+                f"{k} {v:.3f} s" for k, v in stages.items())
+            + "; .index identical to the JAX host route's")
+        os.remove(mine)
     log(f"glist 4c.b: in turns, card route {walls['card'][0]:.3f} and "
         f"{walls['card'][1]:.3f} s, the port's host route "
         f"{walls['host'][0]:.3f} and {walls['host'][1]:.3f} s")
@@ -1260,7 +1251,6 @@ def phase_glistquery(torch, tmp: str, genome_list: str, reads_list: str,
     kernel A's launches in the first -s card run."""
     from genometester4_tpu_torch.cli.glistquery import main
     from genometester4_tpu_torch.io import fasta
-    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
     from genometester4_tpu_torch.pipelines import listquery as lq
 
     # the card route's split (first card run of each): set-up, the work
@@ -1298,7 +1288,7 @@ def phase_glistquery(torch, tmp: str, genome_list: str, reads_list: str,
         walls = {"card": [], "host": []}
         for route in ("card", "host", "host", "card"):
             mine = os.path.join(qd, f"port_{name}.out")
-            extract_kmers_cuda.launches = 0
+            trace.reset()
             torch.cuda.reset_peak_memory_stats()
             split = route == "card" and not walls["card"]
             with (stage_timer(torch, {}, targets) if split
@@ -1306,7 +1296,7 @@ def phase_glistquery(torch, tmp: str, genome_list: str, reads_list: str,
                 rc, err, wall = _port_main_to_file(
                     torch, main, qd, args, "GT4_TPU_LINK",
                     None if route == "card" else "slow", mine)
-            n = extract_kmers_cuda.launches
+            n = trace.total("launch.extract")
             _check_same_output(f"port glistquery -{name} ({route} route)",
                                rc, err, mine, refs[name])
             if name == "s":
@@ -1596,12 +1586,11 @@ def build_read_index(torch, path: str) -> str:
     on CUDA (kernel A must launch), held byte for byte against the JAX
     package's host route building ``ref.idx`` in a subprocess; ref.idx is
     deleted after. Returns a log line."""
-    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
     from genometester4_tpu_torch.tools import katk_fixture as kf
 
-    extract_kmers_cuda.launches = 0
+    trace.reset()
     rc, out, err, wall = _port_gmer_counter(torch, path, kf.INDEX_ARGS, True)
-    launches = extract_kmers_cuda.launches
+    launches = trace.total("launch.extract")
     check(rc == 0, f"port gmer_counter --compile_index exited {rc}: "
                    f"{err.decode(errors='replace')[-2000:]}")
     check(launches > 0, "port gmer_counter --compile_index never launched "
@@ -1629,7 +1618,6 @@ def phase_katk(torch, path: str, seed: int):
     route in turns, each against the JAX package's host route. Returns
     (kernel C launches of the main path's run, the regions' SW inputs);
     that run's stdout stays in ``path``/KATK_CALLS for 4f.d."""
-    from genometester4_tpu_torch.ops.swalign_cuda import sw_fill_lanes_cuda
     from genometester4_tpu_torch.pipelines import gassemble as port_gas
     from genometester4_tpu_torch.tools import katk_fixture as kf
 
@@ -1679,11 +1667,11 @@ def phase_katk(torch, path: str, seed: int):
     port_gas.Assembler.prefetch_device_sw = watched
     try:
         for route in ("device", "host", "host", "device"):
-            sw_fill_lanes_cuda.launches = 0
+            trace.reset()
             torch.cuda.reset_peak_memory_stats()
             rc, out, err, wall = _port_gassembler(torch, path, kf.ARGS,
                                                   route == "device")
-            n_launch = sw_fill_lanes_cuda.launches
+            n_launch = trace.total("launch.sw_lanes")
             if launches is None:   # the main path's run
                 launches = n_launch
                 with open(os.path.join(path, KATK_CALLS), "wb") as f:
@@ -1721,7 +1709,6 @@ def phase_longread(torch, path: str, seed: int) -> int:
     """The port's gassembler CLI on CUDA over the long-read fixture with
     ``--max_read_length 1600``, against the JAX package's host route in a
     subprocess. Returns kernel C's launches in the port's run."""
-    from genometester4_tpu_torch.ops.swalign_cuda import sw_fill_lanes_cuda
     from genometester4_tpu_torch.tools import katk_fixture as kf
 
     n_reads = kf.write_long_read_fixture(path, seed)
@@ -1737,9 +1724,9 @@ def phase_longread(torch, path: str, seed: int) -> int:
         f"{kf.LONG_READ_BP[0]}-{kf.LONG_READ_BP[1]} bp (seed {seed}), "
         f"{cut} cut at --max_read_length 1600; JAX host route "
         f"{time.perf_counter() - t0:.2f} s (its main() {ref_wall:.3f} s)")
-    sw_fill_lanes_cuda.launches = 0
+    trace.reset()
     rc, out, err, wall = _port_gassembler(torch, path, kf.LONG_ARGS, True)
-    launches = sw_fill_lanes_cuda.launches
+    launches = trace.total("launch.sw_lanes")
     log(f"longread port device route: main() wall {wall:.3f} s, kernel C "
         f"launches {launches}, stdout {len(out)} bytes, stderr {len(err)} "
         f"bytes")
@@ -1758,16 +1745,16 @@ def phase_shared(torch, inputs) -> int:
     each equal to kernel C's entry on the same input. Returns D's
     launches."""
     from genometester4_tpu_torch.ops.swalign_cuda import (
-        sw_fill_shared_cuda, sw_matrices_batch_device, sw_pallas_matrices)
+        sw_matrices_batch_device, sw_pallas_matrices)
 
     batch = inputs[2:2 + SHARED_REGIONS]
-    sw_fill_shared_cuda.launches = 0
+    trace.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = [sw_pallas_matrices(ref, reads, device="cuda")
            for ref, reads in batch]
     wall = time.perf_counter() - t0
-    launches = sw_fill_shared_cuda.launches
+    launches = trace.total("launch.sw_shared")
     n_reads = sum(len(reads) for _, reads in batch)
     log(f"shared path: sw_pallas_matrices (kernel D) over {len(batch)} "
         f"regions, {n_reads} reads, wall {wall:.3f} s, launches {launches}")
@@ -1980,7 +1967,6 @@ def phase_mesh_count(torch, tmp: str, count: dict) -> int:
     the card; stdout and stderr must equal 4a's and kernel A launch once
     per chunk. Returns kernel A's launches."""
     from genometester4_tpu_torch.cli.gmer_counter import main
-    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
     from genometester4_tpu_torch.parallel.sharding import make_mesh
     from genometester4_tpu_torch.pipelines import gmercount
 
@@ -1993,14 +1979,14 @@ def phase_mesh_count(torch, tmp: str, count: dict) -> int:
         return count_step(codes, *a)
     gmercount.count_step = counted
     try:
-        extract_kmers_cuda.launches = 0
+        trace.reset()
         torch.cuda.reset_peak_memory_stats()
         rc, o, e, wall = _port_main(torch, _with(main, mesh=mesh), tmp,
                                     ["-db", "db.txt", "reads.fq"],
                                     "GT4_TPU_COUNT_IMPL", None)
     finally:
         gmercount.count_step = count_step
-    launches = extract_kmers_cuda.launches
+    launches = trace.total("launch.extract")
     with open(os.path.join(tmp, GMER_COUNTS), "rb") as f:
         want = f.read()
     check((rc, e) == (0, count["stderr"]),
@@ -2216,9 +2202,6 @@ def run(args) -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     try:
         from genometester4_tpu_torch.ops import _build
-        from genometester4_tpu_torch.ops.extract_cuda import \
-            extract_kmers_cuda
-        from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
         from genometester4_tpu_torch.pipelines.listmaker import (
             DEFAULT_MERGE_BUCKET, make_list)
     except ImportError as e:
@@ -2256,8 +2239,7 @@ def run(args) -> None:
         log(f"input: {GENOME_BP} bp genome-shaped FASTA (seed {args.seed}) in "
             f"{time.perf_counter() - t0:.2f} s")
         out = os.path.join(tmp, f"port_{K}.list")
-        extract_kmers_cuda.launches = 0
-        run_encode_cuda.launches = 0
+        trace.reset()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2265,8 +2247,8 @@ def run(args) -> None:
             hdr = make_list([fa], K, out, device="cuda", debug=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"extract": extract_kmers_cuda.launches,
-                    "run_marks": run_encode_cuda.launches}
+        launches = {"extract": trace.total("launch.extract"),
+                    "run_marks": trace.total("launch.run_encode")}
         log(f"main path: make_list {GENOME_BP} bp seed {args.seed} k={K} "
             f"wall {wall:.3f} s, {hdr.total_count} k-mers ({hdr.total_count / wall / 1e6:.2f} "
             f"M k-mers/s), {hdr.n_words} distinct, peak device memory "

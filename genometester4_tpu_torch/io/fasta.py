@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from genometester4_tpu_torch.ops.encode import NUCL_CODES
+from genometester4_tpu_torch.utils import trace
 
 _NL = ord("\n")
 _CR = ord("\r")
@@ -248,41 +249,49 @@ class SlabMeta:
 
 
 def _iter_raw_slabs(path: str, slab_bytes: int):
-    """Yield raw byte slabs from a plain/gzip file or stdin."""
+    """Yield raw byte slabs from a plain/gzip file or stdin; the open and
+    each slab's read or inflate are the span "read"."""
     import zlib
     if path == "-":
         f = sys.stdin.buffer
         while True:
-            b = f.read(slab_bytes)
+            with trace.span("read"):
+                b = f.read(slab_bytes)
             if not b:
                 return
             yield b
     else:
-        with open(path, "rb") as f:
+        with trace.span("read"):
+            f = open(path, "rb")
             head = f.read(2)
             f.seek(0)
+        with f:
             if head == b"\x1f\x8b":
                 d = zlib.decompressobj(wbits=31)
-                out = []
-                size = 0
-                while True:
-                    comp = f.read(1 << 20)
-                    if not comp:
-                        break
-                    piece = d.decompress(comp)
-                    out.append(piece)
-                    size += len(piece)
-                    if size >= slab_bytes:
-                        yield b"".join(out)
-                        out, size = [], 0
-                tail = d.flush()
-                if tail:
-                    out.append(tail)
-                if out:
-                    yield b"".join(out)
+                eof = False
+                while not eof:
+                    with trace.span("read"):
+                        out = []
+                        size = 0
+                        while size < slab_bytes:
+                            comp = f.read(1 << 20)
+                            if not comp:
+                                eof = True
+                                break
+                            piece = d.decompress(comp)
+                            out.append(piece)
+                            size += len(piece)
+                        if eof:
+                            tail = d.flush()
+                            if tail:
+                                out.append(tail)
+                        slab = b"".join(out) if out else None
+                    if slab is not None:
+                        yield slab
             else:
                 while True:
-                    b = f.read(slab_bytes)
+                    with trace.span("read"):
+                        b = f.read(slab_bytes)
                     if not b:
                         return
                     yield b
@@ -385,13 +394,23 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
     exactly at the seam), so running window extraction per slab loses no
     k-mer and counts none twice. Concatenating all slabs minus prefixes
     reproduces load_file(path).codes exactly.
+
+    Each slab's work is the span "parse", split into "read" (the file
+    read or inflate), "frame" (the carry join and the cut at the last
+    whole line or 4-line group) and "decode" (the decode and the prefix
+    concat).
     """
     fmt = None          # 'fasta' | 'fastq'
     carry = b""         # undecoded partial tail (line / fastq group)
     tail_codes = np.empty(0, np.uint8)  # last k-1 emitted codes
     open_record = False  # a FASTA record spans the seam
     abs_off = 0         # stream byte offset of buf[0]
-    for raw in _iter_raw_slabs(path, slab_bytes):
+
+    def frame(raw: bytes):
+        """The bytes ready to decode and how ("fasta": whole lines,
+        "line": part of a line longer than a slab, "fastq": whole 4-line
+        groups), or None; the rest stays in ``carry``."""
+        nonlocal fmt, carry, abs_off
         buf = carry + raw
         if fmt is None:
             i = 0
@@ -400,7 +419,7 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
             if i >= len(buf):
                 abs_off += len(buf)
                 carry = b""
-                continue
+                return None
             buf = buf[i:]
             abs_off += i
             if buf[0] == _GT:
@@ -412,87 +431,97 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
                     f"unrecognized sequence format (first byte {buf[0]!r})")
         if fmt == "fasta":
             cut = buf.rfind(b"\n") + 1
-            if cut == 0:
-                # no newline in a whole slab: a monster single-line
-                # sequence — consume it directly unless it could be a
-                # header (headers are assumed to fit one slab)
-                if buf[:1] == b">" or not open_record:
-                    carry = buf
-                    continue
-                head, carry = buf, b""
-                if head.endswith(b"\r"):
-                    # could be the first half of a CRLF split across
-                    # slabs — the whole-file parse strips it (_strip_cr)
-                    head, carry = head[:-1], b"\r"
-                seq = np.frombuffer(head, np.uint8)
-                count_n = int(((seq == ord("N")) | (seq == ord("n"))).sum())
-                codes = NUCL_CODES[seq]
-                meta = SlabMeta(0, len(codes), count_n,
-                                prefix_len=len(tail_codes))
-                abs_off += len(head)
-                yield np.concatenate([tail_codes, codes]), meta
-                if k > 1:
-                    tail_codes = codes[-(k - 1):] if len(codes) >= k - 1 \
-                        else np.concatenate([tail_codes, codes])[-(k - 1):]
-                continue
-            head, carry = buf[:cut], buf[cut:]
-            codes, n_new, count_n, bases, _ = _parse_fasta_slab(
-                head, open_record)
-            starts_fresh = head[:1] == b">"
-            prefix = tail_codes
-            if open_record and starts_fresh and len(tail_codes):
-                # record ended exactly at the seam: separate windows
-                prefix = np.concatenate([tail_codes,
-                                         np.full(1, 255, np.uint8)])
-            abs_off += len(head)
-            yield np.concatenate([prefix, codes]), SlabMeta(
-                n_new, bases, count_n, prefix_len=len(prefix))
-            open_record = open_record or n_new > 0
-            if k > 1:
-                tail_codes = codes[-(k - 1):] if len(codes) >= k - 1 \
-                    else np.concatenate([tail_codes, codes])[-(k - 1):]
-        else:  # fastq: records are 4-line groups and never span slabs
-            nl = np.flatnonzero(np.frombuffer(buf, np.uint8) == _NL)
-            n_groups = len(nl) // 4
-            if n_groups == 0:
+            if cut:
+                head, carry = buf[:cut], buf[cut:]
+                return "fasta", head
+            # no newline in a whole slab: a monster single-line sequence
+            # — consume it directly unless it could be a header (headers
+            # are assumed to fit one slab)
+            if buf[:1] == b">" or not open_record:
                 carry = buf
-                continue
-            cut = int(nl[4 * n_groups - 1]) + 1
-            head, carry = buf[:cut], buf[cut:]
+                return None
+            head, carry = buf, b""
+            if head.endswith(b"\r"):
+                # could be the first half of a CRLF split across slabs —
+                # the whole-file parse strips it (_strip_cr)
+                head, carry = head[:-1], b"\r"
+            return "line", head
+        # fastq: records are 4-line groups and never span slabs
+        nl = np.flatnonzero(np.frombuffer(buf, np.uint8) == _NL)
+        n_groups = len(nl) // 4
+        if n_groups == 0:
+            carry = buf
+            return None
+        cut = int(nl[4 * n_groups - 1]) + 1
+        head, carry = buf[:cut], buf[cut:]
+        return "fastq", head
+
+    def decode(kind: str, head: bytes):
+        nonlocal tail_codes, open_record, abs_off
+        if kind == "fastq":
             fast = _parse_fastq_slab_fast(head, abs_off)
-            if fast is not None:
-                codes_fq, meta = fast
-            else:
+            if fast is None:
                 parsed = parse_fastq(head)
-                codes_fq = parsed.codes
-                meta = SlabMeta(parsed.n_records, parsed.total_bases,
-                                parsed.count_n,
-                                rec_starts=parsed.rec_starts,
-                                name_pos=(parsed._name_spans[:, 0]
-                                          .astype(np.int64) + abs_off))
-            abs_off += len(head)
-            yield codes_fq, meta
-    # EOF: flush whatever remains as final (possibly unterminated) lines
-    if carry.strip():
-        if fmt == "fasta":
-            codes, n_new, count_n, bases, _ = _parse_fasta_slab(
-                carry, open_record)
-            starts_fresh = carry[:1] == b">"
-            prefix = tail_codes
-            if open_record and starts_fresh and len(tail_codes):
-                prefix = np.concatenate([tail_codes,
-                                         np.full(1, 255, np.uint8)])
-            yield np.concatenate([prefix, codes]), SlabMeta(
-                n_new, bases, count_n, prefix_len=len(prefix))
-        elif fmt == "fastq":
-            n_lines = carry.count(b"\n") + (0 if carry.endswith(b"\n") else 1)
-            if n_lines >= 4 or carry.count(b"\n") >= 3:
-                parsed = parse_fastq(carry)
-                yield parsed.codes, SlabMeta(
+                fast = parsed.codes, SlabMeta(
                     parsed.n_records, parsed.total_bases, parsed.count_n,
                     rec_starts=parsed.rec_starts,
                     name_pos=(parsed._name_spans[:, 0].astype(np.int64)
                               + abs_off))
+            abs_off += len(head)
+            return fast
+        if kind == "line":
+            seq = np.frombuffer(head, np.uint8)
+            count_n = int(((seq == ord("N")) | (seq == ord("n"))).sum())
+            codes = NUCL_CODES[seq]
+            prefix = tail_codes
+            meta = SlabMeta(0, len(codes), count_n, prefix_len=len(prefix))
+        else:
+            codes, n_new, count_n, bases, _ = _parse_fasta_slab(
+                head, open_record)
+            prefix = tail_codes
+            if open_record and head[:1] == b">" and len(tail_codes):
+                # record ended exactly at the seam: separate windows
+                prefix = np.concatenate([tail_codes,
+                                         np.full(1, 255, np.uint8)])
+            meta = SlabMeta(n_new, bases, count_n, prefix_len=len(prefix))
+            open_record = open_record or n_new > 0
+        out = np.concatenate([prefix, codes])
+        abs_off += len(head)
+        if k > 1:
+            tail_codes = codes[-(k - 1):] if len(codes) >= k - 1 \
+                else np.concatenate([tail_codes, codes])[-(k - 1):]
+        return out, meta
+
+    raws = _iter_raw_slabs(path, slab_bytes)
+    while True:
+        item = None
+        with trace.span("parse"):
+            raw = next(raws, None)
+            if raw is not None:
+                with trace.span("frame"):
+                    ready = frame(raw)
+                if ready is not None:
+                    with trace.span("decode"):
+                        item = decode(*ready)
+        if raw is None:
+            break
+        if item is not None:
+            yield item
+    # EOF: flush whatever remains as final (possibly unterminated) lines
+    if not carry.strip():
+        return
+    with trace.span("parse"), trace.span("decode"):
+        if fmt == "fasta":
+            item = decode("fasta", carry)
+        elif carry.count(b"\n") >= 3:   # a whole FASTQ record at least
+            parsed = parse_fastq(carry)
+            item = parsed.codes, SlabMeta(
+                parsed.n_records, parsed.total_bases, parsed.count_n,
+                rec_starts=parsed.rec_starts,
+                name_pos=(parsed._name_spans[:, 0].astype(np.int64)
+                          + abs_off))
+    if item is not None:
+        yield item
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import torch
 
 from genometester4_tpu_torch.ops import _build
 from genometester4_tpu_torch.ops.kmers import check_codes
+from genometester4_tpu_torch.utils import trace
 
 
 def extract_kmers_cuda(codes: torch.Tensor, k: int, canonical: bool = True):
@@ -39,8 +40,5 @@ def extract_kmers_cuda(codes: torch.Tensor, k: int, canonical: bool = True):
                 valid.data_ptr() if valid is not None else None, n, k,
                 int(canonical), torch.cuda.current_stream().cuda_stream)
         _build.check_launch(lib, err, "extract")
-        extract_kmers_cuda.launches += 1
+        trace.count("launch.extract")
     return keys, (valid.view(torch.bool) if valid is not None else None)
-
-
-extract_kmers_cuda.launches = 0

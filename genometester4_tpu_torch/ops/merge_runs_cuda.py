@@ -15,6 +15,7 @@ import torch
 
 from genometester4_tpu_torch.ops import _build
 from genometester4_tpu_torch.ops.merge_runs import check_runs
+from genometester4_tpu_torch.utils import trace
 
 
 def merge_runs_cuda(keys: torch.Tensor, L: int):
@@ -39,8 +40,5 @@ def merge_runs_cuda(keys: torch.Tensor, L: int):
                 splits.data_ptr(), n, int(L),
                 torch.cuda.current_stream().cuda_stream)
         _build.check_launch(lib, err, "merge runs")
-        merge_runs_cuda.launches += 1
+        trace.count("launch.merge_runs")
     return merged, pos
-
-
-merge_runs_cuda.launches = 0

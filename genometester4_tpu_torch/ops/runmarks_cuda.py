@@ -16,6 +16,7 @@ import torch
 from genometester4_tpu_torch.ops import _build
 from genometester4_tpu_torch.ops.encode import flag_key
 from genometester4_tpu_torch.ops.sortcount import MAX_RUN_KEYS, _U32
+from genometester4_tpu_torch.utils import trace
 
 
 def _check(name: str, x: torch.Tensor, n: int | None = None) -> None:
@@ -69,11 +70,9 @@ def run_encode_cuda(keys: torch.Tensor, weights: torch.Tensor | None = None,
         int(word_bits < 64), keys.device.index,
         torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check_launch(lib, err, "run encode")
-    run_encode_cuda.launches += 1
-    n_unique, total, checksum = (
-        out[2 * n:2 * n + 2].view(torch.int32)[:3].tolist())
+    trace.count("launch.run_encode")
+    with trace.span("sync", wait=True):
+        n_unique, total, checksum = (
+            out[2 * n:2 * n + 2].view(torch.int32)[:3].tolist())
     return (out[:n_unique], out[n:n + n_unique], n_unique, total,
             checksum & _U32)
-
-
-run_encode_cuda.launches = 0

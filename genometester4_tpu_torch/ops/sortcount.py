@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from genometester4_tpu_torch.ops.encode import SIGN, flag_key
+from genometester4_tpu_torch.utils import trace
 
 _U32 = 0xFFFFFFFF
 # kernel B's largest stream (JAX's int32 positions)
@@ -97,7 +98,8 @@ def run_encode(keys: torch.Tensor, weights: torch.Tensor | None = None,
     # inclusive prefix (of positions, or of weights) at consecutive tails
     ends = tails + 1 if weights is None else torch.cumsum(weights, 0)[tails]
     counts = torch.diff(ends, prepend=ends.new_zeros(1)) & _U32
-    n_unique, total, checksum = stats.tolist()
+    with trace.span("sync", wait=True):
+        n_unique, total, checksum = stats.tolist()
     return keys[tails], counts, n_unique, total, checksum & _U32
 
 

@@ -23,6 +23,7 @@ import torch
 
 from genometester4_tpu_torch.ops import _build
 from genometester4_tpu_torch.ops.swalign import PAD, check_fill_inputs, sw_fill
+from genometester4_tpu_torch.utils import trace
 from genometester4_tpu_torch.utils.device import resolve_device
 
 
@@ -73,11 +74,8 @@ def sw_fill_lanes_cuda(refs: torch.Tensor, reads: torch.Tensor,
                 None if scratch is None else scratch.data_ptr(), B, n, m,
                 torch.cuda.current_stream().cuda_stream)
         _build.check_launch(lib, err, "sw lanes")
-        sw_fill_lanes_cuda.launches += 1
+        trace.count("launch.sw_lanes")
     return score, sx, sy
-
-
-sw_fill_lanes_cuda.launches = 0
 
 
 def sw_fill_shared_cuda(ref: torch.Tensor, reads: torch.Tensor):
@@ -106,11 +104,8 @@ def sw_fill_shared_cuda(ref: torch.Tensor, reads: torch.Tensor):
                 None if scratch is None else scratch.data_ptr(), B, n, m,
                 torch.cuda.current_stream().cuda_stream)
         _build.check_launch(lib, err, "sw shared")
-        sw_fill_shared_cuda.launches += 1
+        trace.count("launch.sw_shared")
     return score, sx, sy
-
-
-sw_fill_shared_cuda.launches = 0
 
 
 # ----------------------------------------------------------- host entries

@@ -46,11 +46,13 @@ from the host arrays it holds, and no array spans processes.
 from __future__ import annotations
 
 import atexit
+import functools
 import os
 import socket
 import sys
-import time
 from datetime import timedelta
+
+from genometester4_tpu_torch.utils import trace
 
 DEFAULT_TIMEOUT_S = 600
 
@@ -58,23 +60,17 @@ DEFAULT_TIMEOUT_S = 600
 # {"layout": every process's device ids, "name": "nccl" or "gloo",
 #  "group": the NCCL group or None, "device": this process's first slot}
 _transport: dict = {}
-# this process's exchanges so far (``tools.group_run`` reports them): wall
-# s in the exchange functions, of which staging to pinned memory, and
-# the bytes of the tensors it sent or received
-exchange = {"s": 0.0, "stage_s": 0.0, "bytes": 0}
 
 
-def _timed(fn):
-    """Add ``fn``'s wall to ``exchange["s"]``."""
-    import functools
-
+def _exchange(fn):
+    """``fn``'s calls as the span "exchange", in which this process waits
+    on the others; its staging to pinned memory is the span "stage", the
+    bytes of the tensors it sends or receives the counter
+    "exchange.bytes" (``tools.group_run`` reports all three)."""
     @functools.wraps(fn)
     def wrapper(*a, **kw):
-        t0 = time.perf_counter()
-        try:
+        with trace.span("exchange", wait=True):
             return fn(*a, **kw)
-        finally:
-            exchange["s"] += time.perf_counter() - t0
     return wrapper
 
 
@@ -229,10 +225,9 @@ def _staged(t):
     import torch
     if not t.is_cuda:
         return t.contiguous()
-    t0 = time.perf_counter()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t)
-    exchange["stage_s"] += time.perf_counter() - t0
+    with trace.span("stage"):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
     return host
 
 
@@ -240,11 +235,11 @@ def _on_nccl(t) -> bool:
     return _transport.get("group") is not None and t.is_cuda
 
 
-@_timed
+@_exchange
 def all_sum_(t) -> None:
     """Sum ``t`` over the group, in place, on every process."""
     import torch.distributed as dist
-    exchange["bytes"] += t.numel() * t.element_size()
+    trace.count("exchange.bytes", t.numel() * t.element_size())
     if _on_nccl(t):
         comm = t.to(_transport["device"])
         dist.all_reduce(comm, group=_transport["group"])
@@ -255,15 +250,15 @@ def all_sum_(t) -> None:
     t.copy_(host)
 
 
-@_timed
+@_exchange
 def gather_to_writer(t):
     """Process 0: a list of every process's ``t`` (equal shapes and
     dtypes), on ``t``'s device, by rank; the others: None."""
     import torch
     import torch.distributed as dist
     me, n = dist.get_rank(), dist.get_world_size()
-    exchange["bytes"] += t.numel() * t.element_size() * (n - 1 if me == 0
-                                                         else 1)
+    trace.count("exchange.bytes",
+                t.numel() * t.element_size() * (n - 1 if me == 0 else 1))
     if _on_nccl(t):
         comm = t.to(_transport["device"])
         got = ([torch.empty_like(comm) for _ in range(n)] if me == 0
@@ -277,7 +272,7 @@ def gather_to_writer(t):
     return None if got is None else [g.to(t.device) for g in got]
 
 
-@_timed
+@_exchange
 def send_to_writer(tensors: list) -> None:
     """Send 1-D tensors (any count, 0 included: an empty part still
     sends its header) to process 0, which takes them with
@@ -294,11 +289,11 @@ def send_to_writer(tensors: list) -> None:
     dist.send(head, 0)
     for t in ts:
         if t.numel():
-            exchange["bytes"] += t.numel() * 8
+            trace.count("exchange.bytes", t.numel() * 8)
             dist.send(t.to(dev) if nccl else _staged(t), 0, group=group)
 
 
-@_timed
+@_exchange
 def recv_from(src: int) -> list:
     """Process 0's side of ``send_to_writer``: the int64 tensors that
     process ``src`` sent, on its NCCL card or on the CPU."""
@@ -316,6 +311,6 @@ def recv_from(src: int) -> list:
         t = torch.empty(m, dtype=torch.int64, device=dev)
         if m:
             dist.recv(t, src, group=group)
-        exchange["bytes"] += m * 8
+        trace.count("exchange.bytes", m * 8)
         out.append(t)
     return out

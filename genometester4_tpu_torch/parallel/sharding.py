@@ -50,14 +50,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from genometester4_tpu_torch.ops.encode import (SIGN, keys_from_pair,
-                                                u64_from_keys)
+from genometester4_tpu_torch.ops.encode import SIGN, keys_from_pair
 from genometester4_tpu_torch.ops.merge_runs import merge_sorted_runs
 from genometester4_tpu_torch.ops.sortcount import count_unique
 from genometester4_tpu_torch.parallel import multihost
 from genometester4_tpu_torch.pipelines.listmaker import (count_chunk,
                                                          merge_sorted_shards,
-                                                         to_host_counts)
+                                                         to_host, upload)
+from genometester4_tpu_torch.utils import trace
 from genometester4_tpu_torch.utils.device import resolve_device
 
 # bucket slack over the uniform share (the JAX package's CAP_FACTOR)
@@ -309,7 +309,8 @@ def sharded_count_step(mesh: Mesh, k: int, chunk_bases: int,
             for c in range(kp):
                 if ovf or not mesh.local(r):
                     continue
-                codes = torch.from_numpy(blocks[r, c]).to(mesh.devices[r][c])
+                codes, = upload(torch.from_numpy(blocks[r, c]),
+                                device=mesh.devices[r][c])
                 keys, counts = count_chunk(codes, k)
                 del codes
                 bk, bc, bn, ovf = _route_by_prefix(keys, counts, k, kp, cap)
@@ -324,24 +325,27 @@ def sharded_count_step(mesh: Mesh, k: int, chunk_bases: int,
         columns = []
         ovf = False
         for j in range(kp):
-            if mesh.rank is None:
-                dev = mesh.devices[0][j]
-                keys = torch.stack([bk[j].to(dev) for bk, _, _ in sources])
-                counts = torch.stack([bc[j].to(dev) for _, bc, _ in sources])
-                n = [bn[j] for _, _, bn in sources]
-            else:
-                keys, counts, n = _gather_column(mesh, sources, j, cap, peak)
-            if keys is None or ovf:   # not the writer, or already failed
-                continue
-            mk, mc, n_uniq, ovf = merge_gathered_sources(
-                keys, counts, n, S=S, S2=S2, cap=cap, cap2=cap2,
-                merge_cap=merge_cap)
-            del keys, counts
-            if ovf:
-                continue
-            columns.append((u64_from_keys(mk[:n_uniq]),
-                            to_host_counts(mc[:n_uniq])))
-            del mk, mc
+            with trace.span("merge"):   # column j
+                if mesh.rank is None:
+                    dev = mesh.devices[0][j]
+                    keys = torch.stack([bk[j].to(dev)
+                                        for bk, _, _ in sources])
+                    counts = torch.stack([bc[j].to(dev)
+                                          for _, bc, _ in sources])
+                    n = [bn[j] for _, _, bn in sources]
+                else:
+                    keys, counts, n = _gather_column(mesh, sources, j, cap,
+                                                     peak)
+                if keys is None or ovf:   # not the writer, or failed
+                    continue
+                mk, mc, n_uniq, ovf = merge_gathered_sources(
+                    keys, counts, n, S=S, S2=S2, cap=cap, cap2=cap2,
+                    merge_cap=merge_cap)
+                del keys, counts
+                if ovf:
+                    continue
+                columns.append(to_host(mk[:n_uniq], mc[:n_uniq]))
+                del mk, mc
         if mesh.rank is not None:
             ovf = multihost.all_max([int(ovf)])[0]
         if ovf:
@@ -379,21 +383,36 @@ def iter_count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
         chunk_bases = 1 << math.ceil(math.log2(chunk_bases))
     fn, _ = sharded_count_step(mesh, k, chunk_bases, cap_factor)
 
+    # the codes a step sends to this process's rows, ``real`` of them the
+    # input's and the rest padding
+    sent = kp * chunk_bases * sum(mesh.local(r) for r in range(dp))
+
+    def run_step(blocks, real: int):
+        with trace.span("step"):
+            trace.count("mesh.steps")
+            trace.count("count.slots", sent)
+            trace.count("count.pad", sent - real)
+            return fn(blocks)
+
     step = chunk_bases - (k - 1)
     starts = list(range(0, max(len(codes) - (k - 1), 1), step))
     shard_results = []   # per step, kp (words, counts)
     for gi in range(0, len(starts), n_dev):
-        blocks = np.full((n_dev, chunk_bases), 255, np.uint8)
-        for bi, s in enumerate(starts[gi:gi + n_dev]):
-            if mesh.local(bi // kp):   # a group fills its own row only
-                chunk = codes[s:s + chunk_bases]
-                blocks[bi, :len(chunk)] = chunk
-        blocks = blocks.reshape(dp, kp, chunk_bases)
-        columns, peak = fn(blocks)
+        with trace.span("pad"):
+            blocks = np.full((n_dev, chunk_bases), 255, np.uint8)
+            real = 0
+            for bi, s in enumerate(starts[gi:gi + n_dev]):
+                if mesh.local(bi // kp):   # a group fills its own row only
+                    chunk = codes[s:s + chunk_bases]
+                    blocks[bi, :len(chunk)] = chunk
+                    real += len(chunk)
+            blocks = blocks.reshape(dp, kp, chunk_bases)
+        columns, peak = run_step(blocks, real)
         while columns is None:
             cap_factor *= 2
+            trace.count("mesh.reruns")
             fn, _ = sharded_count_step(mesh, k, chunk_bases, cap_factor)
-            columns, peak = fn(blocks)
+            columns, peak = run_step(blocks, real)
         if auto:
             want = 1.5 * max(peak, 1) / max(1, (chunk_bases - k + 1) // kp)
             if want < cap_factor / 1.3:
@@ -415,13 +434,18 @@ def iter_count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
 def count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
                         chunk_bases: int | None = None, cap_factor="auto",
                         adapt_state: dict | None = None):
-    """Materializing wrapper over iter_count_kmers_sharded."""
-    out = list(iter_count_kmers_sharded(codes, k, mesh, chunk_bases,
-                                        cap_factor, adapt_state))
-    if not out:
-        return np.empty(0, np.uint64), np.empty(0, np.uint32)
-    return (np.concatenate([w for w, _ in out]),
-            np.concatenate([c for _, c in out]))
+    """Materializing wrapper over iter_count_kmers_sharded: the span
+    "count", with each step ("step") and its column merges ("merge")
+    inside, the merges of the steps' columns ("merge") and their
+    concatenation ("gather")."""
+    with trace.span("count"):
+        out = list(iter_count_kmers_sharded(codes, k, mesh, chunk_bases,
+                                            cap_factor, adapt_state))
+        if not out:
+            return np.empty(0, np.uint64), np.empty(0, np.uint32)
+        with trace.span("gather"):
+            return (np.concatenate([w for w, _ in out]),
+                    np.concatenate([c for _, c in out]))
 
 
 def sharded_pair_op(words1, counts1, words2, counts2, mesh: Mesh, op: str,

@@ -77,6 +77,7 @@ from genometester4_tpu_torch.ops.sortcount import sort_compact
 from genometester4_tpu_torch.parallel import multihost
 from genometester4_tpu_torch.pipelines.listmaker import (forward_windows,
                                                          pow2_cap)
+from genometester4_tpu_torch.utils import trace
 from genometester4_tpu_torch.utils.device import resolve_device
 from genometester4_tpu_torch.utils.native import get_lib
 
@@ -232,26 +233,31 @@ class DBCounter:
     def _upload(self, chunk: np.ndarray, dev: torch.device) -> torch.Tensor:
         """One chunk on ``dev``, padded with invalid bytes to ``pow2_cap``;
         on CUDA through a pinned host buffer, reused once the previous
-        chunk's copy out of it has finished."""
-        cap = pow2_cap(len(chunk), self.chunk_bases)
-        if dev.type != "cuda":
-            out = torch.full((cap,), 255, dtype=torch.uint8)
-            out[:len(chunk)] = torch.from_numpy(chunk)
-            return out.to(dev)
-        if self._last_upload is not None:
-            self._last_upload.synchronize()
-        if self._pinned is None or self._pinned.numel() < cap:
-            self._pinned = torch.empty(cap, dtype=torch.uint8,
-                                       pin_memory=True)
-        host = self._pinned[:cap].numpy()
-        host[:len(chunk)] = chunk
-        host[len(chunk):] = 255
-        out = self._pinned[:cap].to(dev, non_blocking=True)
-        if dev not in self._upload_done:
-            self._upload_done[dev] = torch.cuda.Event()
-        self._last_upload = self._upload_done[dev]
-        self._last_upload.record(torch.cuda.current_stream(dev))
-        return out
+        chunk's copy out of it has finished. The span "upload", and
+        "upload_wait" for the wait on that copy."""
+        with trace.span("upload"):
+            cap = pow2_cap(len(chunk), self.chunk_bases)
+            trace.count("count.slots", cap)
+            trace.count("count.pad", cap - len(chunk))
+            if dev.type != "cuda":
+                out = torch.full((cap,), 255, dtype=torch.uint8)
+                out[:len(chunk)] = torch.from_numpy(chunk)
+                return out.to(dev)
+            if self._last_upload is not None:
+                with trace.span("upload_wait", wait=True):
+                    self._last_upload.synchronize()
+            if self._pinned is None or self._pinned.numel() < cap:
+                self._pinned = torch.empty(cap, dtype=torch.uint8,
+                                           pin_memory=True)
+            host = self._pinned[:cap].numpy()
+            host[:len(chunk)] = chunk
+            host[len(chunk):] = 255
+            out = self._pinned[:cap].to(dev, non_blocking=True)
+            if dev not in self._upload_done:
+                self._upload_done[dev] = torch.cuda.Event()
+            self._last_upload = self._upload_done[dev]
+            self._last_upload.record(torch.cuda.current_stream(dev))
+            return out
 
     def _idx_lookup(self, chunk_codes: np.ndarray):
         """One chunk's (hcode, hpos, hdir, n_valid) as numpy, host or
@@ -286,6 +292,12 @@ class DBCounter:
                 hdir.to(torch.uint8).cpu().numpy(), int(n_valid))
 
     def add_file(self, path: str, slab_bytes: int = 1 << 28):
+        """Count (or, with ``build_index``, collect the hits of) one read
+        file: the job span "count_file"."""
+        with trace.span("count_file"):
+            self._add_file(path, slab_bytes)
+
+    def _add_file(self, path: str, slab_bytes: int):
         if self.build_index:
             # FASTQ (the KATK read format) streams: records never span
             # slabs and SlabMeta carries absolute name offsets. FASTA
@@ -474,42 +486,58 @@ class DBCounter:
             self._next_slot = (self._next_slot + 1) % len(self._slots)
             if dev is None:   # another process's chunk
                 continue
-            n_valid = count_step(
-                self._upload(codes[start:start + self.chunk_bases], dev), k,
-                self._keys[dev], self._accs[dev], self._zero_word)
-            if self.collect_stats:
-                self.result.stats.n_kmers_total += int(n_valid)
+            with trace.span("count"):
+                chunk = self._upload(codes[start:start + self.chunk_bases],
+                                     dev)
+                with trace.span("launch"):
+                    n_valid = count_step(chunk, k, self._keys[dev],
+                                         self._accs[dev], self._zero_word)
+                if self.collect_stats:
+                    with trace.span("sync", wait=True):
+                        self.result.stats.n_kmers_total += int(n_valid)
 
     def finalize(self):
-        """Pull the accumulator and fold it into per-slot totals."""
+        """Pull the accumulator and fold it into per-slot totals: the job
+        span "finalize", its copy back and its host "fold" inside."""
         if self._finalized:
             return
         self._finalized = True
         if self.build_index:
             return
+        with trace.span("finalize"):
+            self._finalize()
+
+    def _finalize(self):
         if self._host:
             totals = self._host_acc
         else:
-            total = sum(acc.to(self._dev) for acc in self._accs.values())
-            if self._grouped:   # JAX's psum, and its global n_valid
-                multihost.all_sum_(total)
-                if self.collect_stats:
-                    st = self.result.stats
-                    n = torch.tensor([st.n_kmers_total])
-                    multihost.all_sum_(n)
-                    st.n_kmers_total = int(n)
-            totals = total.cpu().numpy().view(np.uint64)
-        ok = self._slot_ok
-        if not ok.all() and totals[~ok].any():
-            sys.stderr.write(
-                "DB inconsistency: Node index is bigger than the "
-                "number of nodes\n")
-        np.add.at(self.result.counts, self._slot_of_unique[ok], totals[ok])
-        if self.collect_stats:
-            st = self.result.stats
-            st.n_kmers += int(totals[ok].sum())
-            st.n_kmer_gc += int(
-                (self._slot_gc[self._slot_of_unique[ok]] * totals[ok]).sum())
+            # the accumulators summed on one card (and over the group),
+            # then copied back
+            with trace.span("copyback", wait=True):
+                total = sum(acc.to(self._dev) for acc in self._accs.values())
+                if self._grouped:   # JAX's psum, and its global n_valid
+                    multihost.all_sum_(total)
+                    if self.collect_stats:
+                        st = self.result.stats
+                        n = torch.tensor([st.n_kmers_total])
+                        multihost.all_sum_(n)
+                        st.n_kmers_total = int(n)
+                if total.device.type != "cpu":
+                    trace.count("copy.d2h_bytes", total.numel() * 8)
+                totals = total.cpu().numpy().view(np.uint64)
+        with trace.span("fold"):
+            ok = self._slot_ok
+            if not ok.all() and totals[~ok].any():
+                sys.stderr.write(
+                    "DB inconsistency: Node index is bigger than the "
+                    "number of nodes\n")
+            np.add.at(self.result.counts, self._slot_of_unique[ok],
+                      totals[ok])
+            if self.collect_stats:
+                st = self.result.stats
+                st.n_kmers += int(totals[ok].sum())
+                st.n_kmer_gc += int((self._slot_gc[self._slot_of_unique[ok]]
+                                     * totals[ok]).sum())
 
 
 def _index_nbits(maxval: int) -> int:

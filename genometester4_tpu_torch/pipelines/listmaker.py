@@ -37,7 +37,6 @@ import math
 import os
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -54,6 +53,7 @@ from genometester4_tpu_torch.ops.kmers import extract_kmers_best
 from genometester4_tpu_torch.ops.sortcount import count_unique, sort_compact
 from genometester4_tpu_torch.parallel import multihost
 from genometester4_tpu_torch.pipelines.listcompare import bucket_cuts
+from genometester4_tpu_torch.utils import trace
 from genometester4_tpu_torch.utils.device import resolve_device
 
 # 2^25 bases per chunk: ~1 GB of device memory per chunk (codes, int64
@@ -81,10 +81,22 @@ def pad_pow2_chunk(chunk: np.ndarray, cap_limit: int) -> np.ndarray:
     return chunk
 
 
-def to_host_counts(counts: torch.Tensor) -> np.ndarray:
-    """int64 counts below 2^32 (any device) -> host u32."""
-    # the int32 cast keeps their bits and halves the copy
-    return counts.to(torch.int32).cpu().numpy().view(np.uint32)
+def to_host(words: torch.Tensor, counts: torch.Tensor):
+    """Unique int64 keys and their counts below 2^32 (any device) -> host
+    (words u64, counts u32): the span "copyback", and from a card the
+    counter "copy.d2h_bytes", 12 bytes an entry."""
+    with trace.span("copyback", wait=True):
+        if words.device.type != "cpu":
+            trace.count("copy.d2h_bytes", 12 * words.numel())
+        # the int32 cast keeps the counts' bits and halves their copy
+        return (u64_from_keys(words),
+                counts.to(torch.int32).cpu().numpy().view(np.uint32))
+
+
+def upload(*arrays: torch.Tensor, device) -> list:
+    """Host tensors -> ``device`` (pageable copies): the span "upload"."""
+    with trace.span("upload", wait=True):
+        return [a.to(device) for a in arrays]
 
 
 def count_chunk(codes: torch.Tensor, k: int, canonical: bool = True):
@@ -114,11 +126,20 @@ def count_chunks(codes: np.ndarray, k: int,
     if n <= k - 1:
         return
     for start in range(0, max(n - (k - 1), 1), step):
-        chunk = pad_pow2_chunk(codes[start:start + chunk_bases], chunk_bases)
-        words, counts = count_chunk(torch.from_numpy(chunk).to(dev), k,
-                                    canonical)
-        if len(words):
-            yield u64_from_keys(words), to_host_counts(counts)
+        out = None
+        with trace.span("count"):
+            with trace.span("pad"):
+                piece = codes[start:start + chunk_bases]
+                chunk = pad_pow2_chunk(piece, chunk_bases)
+            trace.count("count.slots", len(chunk))
+            trace.count("count.pad", len(chunk) - len(piece))
+            chunk, = upload(torch.from_numpy(chunk), device=dev)
+            with trace.span("launch"):
+                words, counts = count_chunk(chunk, k, canonical)
+            if len(words):
+                out = to_host(words, counts)
+        if out is not None:
+            yield out
 
 
 def merge_sorted_shards(shards, target_bucket: int = DEFAULT_MERGE_BUCKET,
@@ -137,7 +158,8 @@ def merge_sorted_shards(shards, target_bucket: int = DEFAULT_MERGE_BUCKET,
     shards = [s for s in shards if len(s[0])]
     if not shards:
         return
-    cuts = bucket_cuts([w for w, _ in shards], target_bucket)
+    with trace.span("merge"), trace.span("cuts"):
+        cuts = bucket_cuts([w for w, _ in shards], target_bucket)
     for b in range(len(cuts[0]) - 1):
         parts = [(w[cut[b]:cut[b + 1]], c[cut[b]:cut[b + 1]])
                  for (w, c), cut in zip(shards, cuts)
@@ -148,11 +170,15 @@ def merge_sorted_shards(shards, target_bucket: int = DEFAULT_MERGE_BUCKET,
             # single source: already sorted and unique
             yield np.asarray(parts[0][0]), np.asarray(parts[0][1])
             continue
-        keys = keys_from_u64(np.concatenate([w for w, _ in parts])).to(dev)
-        weights = torch.from_numpy(
-            np.concatenate([c for _, c in parts]).astype(np.int64)).to(dev)
-        words, counts, _ = count_unique(keys, weights)
-        yield u64_from_keys(words), to_host_counts(counts)
+        with trace.span("merge"):
+            with trace.span("gather"):
+                keys = keys_from_u64(np.concatenate([w for w, _ in parts]))
+                weights = torch.from_numpy(
+                    np.concatenate([c for _, c in parts]).astype(np.int64))
+            keys, weights = upload(keys, weights, device=dev)
+            words, counts, _ = count_unique(keys, weights)
+            out = to_host(words, counts)
+        yield out
 
 
 def _default_mesh(dev: torch.device, canonical: bool):
@@ -165,10 +191,18 @@ def _default_mesh(dev: torch.device, canonical: bool):
     return None
 
 
-def _print_phase_debug(hdr, n_words_in, t_parse, t_count, t_write):
+def _print_phase_debug(hdr, n_words_in, job: int):
     """-D phase accounting in the JAX package's format (after the
-    reference's token accumulators, src/glistmaker.c:355-359): Read =
-    slab parse, Sort = the device count, Write tmp = merge + final write."""
+    reference's token accumulators, src/glistmaker.c:355-359), from the
+    spans right under the job's root: Read = "parse", Sort = "count" and
+    "spill", Write tmp = "merge" and "write"."""
+    took: dict = {}
+    for r in trace.rows():
+        if r.parent == job:
+            took[r.name] = took.get(r.name, 0.0) + (r.t1 - r.t0)
+    t_parse = took.get("parse", 0.0)
+    t_count = took.get("count", 0.0) + took.get("spill", 0.0)
+    t_write = took.get("merge", 0.0) + took.get("write", 0.0)
     sys.stderr.write("Words %d, unique %d\n"
                      % (hdr.total_count, hdr.n_words))
     for phase, nw, dt in (("Read", n_words_in, t_parse),
@@ -198,7 +232,8 @@ def make_list(input_files, word_length: int, output_path: str,
     ``make_mesh()`` unless GT4_TPU_MESH=0, as the JAX package does. On a
     group's mesh only process 0 writes (the others return None), after
     which every process passes a barrier.
-    ``debug`` > 0 prints per-phase counters to stderr. ``spill_bytes``
+    ``debug`` > 0 records the job's spans and prints per-phase times
+    from them to stderr. ``spill_bytes``
     (default 6 GiB, env GT4_SPILL_BYTES) is the in-RAM budget of counted
     shards before they spill to tmp .list files (dir GT4_TPU_TMPDIR)
     that the merge then reads as mmaps. ``min_count``/``max_count`` are
@@ -221,7 +256,6 @@ def make_list(input_files, word_length: int, output_path: str,
     if spill_bytes is None:
         spill_bytes = int(os.environ.get("GT4_SPILL_BYTES", 6 << 30))
     tmpdir = os.environ.get("GT4_TPU_TMPDIR") or None
-    t_parse = t_count = 0.0
     n_words_in = 0
     shards = []
     ram_bytes = 0
@@ -243,59 +277,63 @@ def make_list(input_files, word_length: int, output_path: str,
         ram_bytes = 0
         return out
 
-    try:
-        for path in input_files:
-            slabs = iter_code_slabs(path, word_length, slab_bytes)
-            while True:
-                t0 = time.time()
-                item = next(slabs, None)
-                t_parse += time.time() - t0
-                if item is None:
-                    break
-                codes, meta = item
-                t0 = time.time()
-                if mesh is not None:
-                    counted = [count_kmers_sharded(
-                        codes, word_length, mesh,
-                        adapt_state=mesh_adapt_state)]
-                else:
-                    counted = count_chunks(codes, word_length, chunk_bases,
-                                           canonical, dev)
-                for w, c in counted:
-                    if not len(w):
-                        continue
-                    shards.append((w, c))
-                    ram_bytes += w.nbytes + c.nbytes
-                    if ram_bytes > spill_bytes:
-                        shards = spill(shards)
-                t_count += time.time() - t0
-                n_words_in += max(0, meta.total_bases - (word_length - 1)
-                                  * meta.n_records)
-        t_merge0 = time.time()
-        hdr = None
-        if mesh is None or mesh.writer:   # in a group, process 0 writes
-            cut = min_count > 1 or max_count != 0xFFFFFFFF
-            with ListWriter(output_path, word_length) as w:
-                for words, counts in merge_sorted_shards(shards, device=dev):
-                    if cut:
-                        keep = counts >= np.uint32(min_count)
-                        if max_count != 0xFFFFFFFF:
-                            keep &= counts <= np.uint32(max_count)
-                        words, counts = words[keep], counts[keep]
-                    w.append(words, counts)
-            hdr = ListHeader(word_length, w.n_words, w.total_count)
-            if debug:
-                _print_phase_debug(hdr, n_words_in, t_parse, t_count,
-                                   time.time() - t_merge0)
-    finally:
-        for tmp in tmp_files:
-            try:
-                os.unlink(tmp)
-            except OSError:
-                pass
+    with trace.recording(debug > 0), trace.span("list") as job:
+        try:
+            for path in input_files:
+                for codes, meta in iter_code_slabs(path, word_length,
+                                                   slab_bytes):
+                    if mesh is not None:
+                        counted = [count_kmers_sharded(
+                            codes, word_length, mesh,
+                            adapt_state=mesh_adapt_state)]
+                    else:
+                        counted = count_chunks(codes, word_length,
+                                               chunk_bases, canonical, dev)
+                    for w, c in counted:
+                        if not len(w):
+                            continue
+                        shards.append((w, c))
+                        ram_bytes += w.nbytes + c.nbytes
+                        if ram_bytes > spill_bytes:
+                            with trace.span("spill"):
+                                shards = spill(shards)
+                    n_words_in += max(0, meta.total_bases - (word_length - 1)
+                                      * meta.n_records)
+            hdr = None
+            if mesh is None or mesh.writer:   # in a group, process 0 writes
+                hdr = _merge_and_write(shards, output_path, word_length,
+                                       min_count, max_count, dev)
+                if debug:
+                    _print_phase_debug(hdr, n_words_in, job.id)
+        finally:
+            for tmp in tmp_files:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
     if group:
         multihost.barrier()   # no process returns before the file exists
     return hdr
+
+
+def _merge_and_write(shards, output_path: str, word_length: int,
+                     min_count: int, max_count: int, dev) -> ListHeader:
+    """The merge of the counted shards, cut to [min_count, max_count],
+    into a ``ListWriter``; its opening and appends are the span "write"
+    (its close, a header's rewrite, is the job's own time)."""
+    cut = min_count > 1 or max_count != 0xFFFFFFFF
+    with trace.span("write"):
+        w = ListWriter(output_path, word_length)
+    with w:
+        for words, counts in merge_sorted_shards(shards, device=dev):
+            if cut:
+                keep = counts >= np.uint32(min_count)
+                if max_count != 0xFFFFFFFF:
+                    keep &= counts <= np.uint32(max_count)
+                words, counts = words[keep], counts[keep]
+            with trace.span("write"):
+                w.append(words, counts)
+    return ListHeader(word_length, w.n_words, w.total_count)
 
 
 def forward_windows(codes: torch.Tensor, k: int):
@@ -340,8 +378,7 @@ def _header_only_index(output_path: str, k: int) -> None:
 def make_index(input_files, word_length: int, output_path: str,
                min_count: int = 1, max_count: int = 0xFFFFFFFF,
                chunk_bases: int = DEFAULT_CHUNK_BASES,
-               slab_bytes: int = 1 << 28, device=None,
-               stages: dict | None = None):
+               slab_bytes: int = 1 << 28, device=None):
     """glistmaker --index: FASTA/FASTQ -> .index location file, byte for
     byte the JAX package's (reference writer src/glistmaker.c:366-782).
 
@@ -355,10 +392,17 @@ def make_index(input_files, word_length: int, output_path: str,
     versions); ``GT4_TPU_COUNT_IMPL=host`` takes the native host route
     instead. ``min_count``/``max_count`` reach the index records only:
     every location is written, the offsets count kept words only (the
-    reference's cutoff bug, ``formats.index_format``). ``stages``, when
-    given, receives the seconds of each stage: "chunks" (slab parse,
-    extraction and the copies back), "pair sort", "record emit", "write".
+    reference's cutoff bug, ``formats.index_format``). The job is the
+    span "index", its stages the spans "chunks" (slab parse, extraction
+    and the copies back), "pair_sort", "record_emit" and "write".
     """
+    with trace.span("index"):
+        _make_index(input_files, word_length, output_path, min_count,
+                    max_count, chunk_bases, slab_bytes, device)
+
+
+def _make_index(input_files, k: int, output_path: str, min_count: int,
+                max_count: int, chunk_bases: int, slab_bytes: int, device):
     import ctypes
 
     from genometester4_tpu_torch.formats.index_format import (
@@ -366,7 +410,6 @@ def make_index(input_files, word_length: int, output_path: str,
     from genometester4_tpu_torch.io.fasta import iter_slabs_indexed
     from genometester4_tpu_torch.utils.native import get_lib
 
-    k = word_length
     host = os.environ.get("GT4_TPU_COUNT_IMPL") == "host"
     if host:
         from genometester4_tpu_torch.utils.backend import disable_numpy_thp
@@ -374,95 +417,93 @@ def make_index(input_files, word_length: int, output_path: str,
         lib = get_lib()
     else:
         dev = resolve_device(device)
-    times = {} if stages is None else stages
-    t0 = time.perf_counter()
-    files_meta = []
-    per_file = []  # (words, rec, lpos, dirs)
-    max_lpos = 0
-    max_subseq = 0
-    for path in input_files:
-        span_parts = []
-        len_parts = []       # FASTQ per-record char lengths
-        is_fastq = False
-        w_l, r_l, p_l, d_l = [], [], [], []
-        stream_size = 0
-        n_rec = 0
+    with trace.span("chunks"):   # each copy back synced
+        files_meta = []
+        per_file = []  # (words, rec, lpos, dirs)
+        max_lpos = 0
+        max_subseq = 0
+        for path in input_files:
+            span_parts = []
+            len_parts = []       # FASTQ per-record char lengths
+            is_fastq = False
+            w_l, r_l, p_l, d_l = [], [], [], []
+            stream_size = 0
+            n_rec = 0
 
-        def add(meta, words, spos, dirs):
-            # slab positions -> (record, record-local position)
-            seg = np.searchsorted(meta.seg_starts, spos, side="right") - 1
-            w_l.append(words)
-            r_l.append(meta.seg_rec[seg])
-            p_l.append(spos - meta.seg_starts[seg] + meta.seg_lpos0[seg])
-            d_l.append(dirs)
+            def add(meta, words, spos, dirs):
+                # slab positions -> (record, record-local position)
+                seg = np.searchsorted(meta.seg_starts, spos, side="right") - 1
+                w_l.append(words)
+                r_l.append(meta.seg_rec[seg])
+                p_l.append(spos - meta.seg_starts[seg] + meta.seg_lpos0[seg])
+                d_l.append(dirs)
 
-        for codes, meta in iter_slabs_indexed(path, k, slab_bytes):
-            if codes is None:
-                stream_size = meta.stream_size
-                n_rec = meta.n_records
-                break
-            span_parts.append(meta.name_spans)
-            if meta.rec_lengths is not None:
-                is_fastq = True
-                len_parts.append(meta.rec_lengths)
-            n = len(codes)
-            if n < k:
+            for codes, meta in iter_slabs_indexed(path, k, slab_bytes):
+                if codes is None:
+                    stream_size = meta.stream_size
+                    n_rec = meta.n_records
+                    break
+                span_parts.append(meta.name_spans)
+                if meta.rec_lengths is not None:
+                    is_fastq = True
+                    len_parts.append(meta.rec_lengths)
+                n = len(codes)
+                if n < k:
+                    continue
+                if host:
+                    cap = max(n - k + 1, 1)
+                    wbuf = np.empty(cap, np.uint64)
+                    pbuf = np.empty(cap, np.int64)
+                    dbuf = np.empty(cap, np.uint8)
+                    m = lib.fgx_extract_canonical_posdir(
+                        np.ascontiguousarray(codes, np.uint8), n, k,
+                        wbuf, pbuf, dbuf)
+                    if m:
+                        add(meta, wbuf[:m], pbuf[:m], dbuf[:m])
+                    continue
+                step = chunk_bases - (k - 1)
+                for start in range(0, max(n - (k - 1), 1), step):
+                    chunk = pad_pow2_chunk(codes[start:start + chunk_bases],
+                                           chunk_bases)
+                    m, can, pos, is_rc = index_chunk(
+                        torch.from_numpy(chunk).to(dev), k)
+                    if m:
+                        add(meta, can.cpu().numpy().view(np.uint64),
+                            pos.cpu().numpy() + start,
+                            is_rc.to(torch.uint8).cpu().numpy())
+
+            # byte-level subsequence registry (src/glistmaker.c:1030-1050):
+            # name_pos/name_len from the record header, seq span in BYTES up
+            # to the next record start (FASTA) or the sequence line (FASTQ)
+            ns = (np.concatenate(span_parts) if span_parts
+                  else np.zeros((0, 2), np.int64))
+            subseqs = np.zeros((n_rec, 4), np.int64)
+            subseqs[:, 0] = ns[:, 0]
+            subseqs[:, 1] = ns[:, 1] - ns[:, 0]
+            seq_pos = ns[:, 1] + 1
+            subseqs[:, 2] = seq_pos
+            if not is_fastq:
+                nxt = np.concatenate([ns[1:, 0] - 1, [stream_size]])
+                subseqs[:, 3] = nxt - seq_pos
+            else:
+                subseqs[:, 3] = (np.concatenate(len_parts) if len_parts
+                                 else np.zeros(0, np.int64))
+            # the registry's file size is the ON-DISK size (the reference
+            # stats the file, so a .gz records its compressed size) while the
+            # subseq offsets and spans are decompressed-stream coordinates
+            disk_size = (os.path.getsize(path) if path != "-"
+                         else stream_size)
+            files_meta.append(IndexFile(path.encode(), disk_size, subseqs))
+            if n_rec:
+                max_subseq = max(max_subseq, n_rec - 1)
+            if not w_l:
+                per_file.append(None)
                 continue
-            if host:
-                cap = max(n - k + 1, 1)
-                wbuf = np.empty(cap, np.uint64)
-                pbuf = np.empty(cap, np.int64)
-                dbuf = np.empty(cap, np.uint8)
-                m = lib.fgx_extract_canonical_posdir(
-                    np.ascontiguousarray(codes, np.uint8), n, k,
-                    wbuf, pbuf, dbuf)
-                if m:
-                    add(meta, wbuf[:m], pbuf[:m], dbuf[:m])
-                continue
-            step = chunk_bases - (k - 1)
-            for start in range(0, max(n - (k - 1), 1), step):
-                chunk = pad_pow2_chunk(codes[start:start + chunk_bases],
-                                       chunk_bases)
-                m, can, pos, is_rc = index_chunk(
-                    torch.from_numpy(chunk).to(dev), k)
-                if m:
-                    add(meta, can.cpu().numpy().view(np.uint64),
-                        pos.cpu().numpy() + start,
-                        is_rc.to(torch.uint8).cpu().numpy())
-
-        # byte-level subsequence registry (src/glistmaker.c:1030-1050):
-        # name_pos/name_len from the record header, seq span in BYTES up
-        # to the next record start (FASTA) or the sequence line (FASTQ)
-        ns = (np.concatenate(span_parts) if span_parts
-              else np.zeros((0, 2), np.int64))
-        subseqs = np.zeros((n_rec, 4), np.int64)
-        subseqs[:, 0] = ns[:, 0]
-        subseqs[:, 1] = ns[:, 1] - ns[:, 0]
-        seq_pos = ns[:, 1] + 1
-        subseqs[:, 2] = seq_pos
-        if not is_fastq:
-            nxt = np.concatenate([ns[1:, 0] - 1, [stream_size]])
-            subseqs[:, 3] = nxt - seq_pos
-        else:
-            subseqs[:, 3] = (np.concatenate(len_parts) if len_parts
-                             else np.zeros(0, np.int64))
-        # the registry's file size is the ON-DISK size (the reference
-        # stats the file, so a .gz records its compressed size) while the
-        # subseq offsets and spans are decompressed-stream coordinates
-        disk_size = (os.path.getsize(path) if path != "-"
-                     else stream_size)
-        files_meta.append(IndexFile(path.encode(), disk_size, subseqs))
-        if n_rec:
-            max_subseq = max(max_subseq, n_rec - 1)
-        if not w_l:
-            per_file.append(None)
-            continue
-        lpos = np.concatenate(p_l)
-        if len(lpos):
-            max_lpos = max(max_lpos, int(lpos.max()))
-        per_file.append((np.concatenate(w_l), np.concatenate(r_l), lpos,
-                         np.concatenate(d_l)))
-    times["chunks"] = time.perf_counter() - t0   # each copy back synced
+            lpos = np.concatenate(p_l)
+            if len(lpos):
+                max_lpos = max(max_lpos, int(lpos.max()))
+            per_file.append((np.concatenate(w_l), np.concatenate(r_l), lpos,
+                             np.concatenate(d_l)))
 
     if not any(pf is not None and len(pf[0]) for pf in per_file):
         _header_only_index(output_path, k)
@@ -472,39 +513,36 @@ def make_index(input_files, word_length: int, output_path: str,
     n_subseq_bits = get_bitsize(max_subseq)
     n_pos_bits = get_bitsize(max_lpos)
 
-    t0 = time.perf_counter()
-    words_parts, code_parts = [], []
-    for file_idx, pf in enumerate(per_file):
-        if pf is None:
-            continue
-        words, rec, lpos, dirs = pf
-        code = ((np.uint64(file_idx)
-                 << np.uint64(n_subseq_bits + n_pos_bits + 1))
-                | (rec.astype(np.uint64) << np.uint64(n_pos_bits + 1))
-                | (lpos.astype(np.uint64) << np.uint64(1))
-                | dirs.astype(np.uint64))
-        words_parts.append(words)
-        code_parts.append(code)
-    aw = np.ascontiguousarray(np.concatenate(words_parts), np.uint64)
-    ac = np.ascontiguousarray(np.concatenate(code_parts), np.uint64)
-    # location codes pack (file, record, position, dir) in stream order,
-    # so they ascend in the concatenation: one stable LSD pair sort by
-    # word leaves the (word, code) pairs in lexicographic order
-    lib = get_lib()
-    if lib.fgx_sort_pair_u64(aw, ac, len(aw), 2 * k):
-        raise MemoryError("pair sort scratch allocation failed")
-    times["pair sort"] = time.perf_counter() - t0
+    with trace.span("pair_sort"):
+        words_parts, code_parts = [], []
+        for file_idx, pf in enumerate(per_file):
+            if pf is None:
+                continue
+            words, rec, lpos, dirs = pf
+            code = ((np.uint64(file_idx)
+                     << np.uint64(n_subseq_bits + n_pos_bits + 1))
+                    | (rec.astype(np.uint64) << np.uint64(n_pos_bits + 1))
+                    | (lpos.astype(np.uint64) << np.uint64(1))
+                    | dirs.astype(np.uint64))
+            words_parts.append(words)
+            code_parts.append(code)
+        aw = np.ascontiguousarray(np.concatenate(words_parts), np.uint64)
+        ac = np.ascontiguousarray(np.concatenate(code_parts), np.uint64)
+        # location codes pack (file, record, position, dir) in stream
+        # order, so they ascend in the concatenation: one stable LSD pair
+        # sort by word leaves the (word, code) pairs in lexicographic order
+        lib = get_lib()
+        if lib.fgx_sort_pair_u64(aw, ac, len(aw), 2 * k):
+            raise MemoryError("pair sort scratch allocation failed")
     # one C pass over the runs emits the interleaved k-mer records (the
     # cutoff bug kept: offsets accumulate over kept words only, every
     # location is written)
-    t0 = time.perf_counter()
-    recs = np.empty(2 * len(aw), np.uint64)
-    nloc = ctypes.c_ulonglong(0)
-    m = lib.fgx_index_kmer_records(aw, len(aw), min_count, max_count, recs,
-                                   ctypes.byref(nloc))
-    times["record emit"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    write_index_file(output_path, k, files_meta, None, None,
-                     int(nloc.value), ac, n_file_bits, n_subseq_bits,
-                     n_pos_bits, kmer_recs=recs[: 2 * m])
-    times["write"] = time.perf_counter() - t0
+    with trace.span("record_emit"):
+        recs = np.empty(2 * len(aw), np.uint64)
+        nloc = ctypes.c_ulonglong(0)
+        m = lib.fgx_index_kmer_records(aw, len(aw), min_count, max_count,
+                                       recs, ctypes.byref(nloc))
+    with trace.span("write"):
+        write_index_file(output_path, k, files_meta, None, None,
+                         int(nloc.value), ac, n_file_bits, n_subseq_bits,
+                         n_pos_bits, kmer_recs=recs[: 2 * m])

@@ -21,12 +21,14 @@ One process of the group:
   exit        null, or an exit code to leave with right after joining (a
               process that dies before the work)
   report      null, or a file for the report: {"rc", "wall" (s), "rank",
-              "transport", "launches" (kernels A, B and E), "calls",
-              "exchange" (``multihost.exchange``: wall s in the exchange,
-              of which staging, and bytes), "files" (the working
-              directory's when ``main`` returned)}
+              "transport", "launches" (kernels A, B and E: the counters
+              "launch.*"), "calls", "exchange" (from the spans of
+              ``parallel.multihost``: "s", wall s in the exchanges,
+              "stage_s", of which staging, and "bytes"), "files" (the
+              working directory's when ``main`` returned)}
 
-It runs in the working directory, with the tool's own stdout and stderr.
+It runs in the working directory, with the tool's own stdout and stderr,
+and records the program's spans (``utils.trace``) while ``main`` runs.
 ``launch`` starts a whole group on a free loopback port and collects each
 process's exit code, output and report.
 """
@@ -65,10 +67,8 @@ def _counted(name: str, calls: dict) -> None:
 def run(spec: dict) -> int:
     import torch
 
-    from genometester4_tpu_torch.ops.extract_cuda import extract_kmers_cuda
-    from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
-    from genometester4_tpu_torch.ops.runmarks_cuda import run_encode_cuda
     from genometester4_tpu_torch.parallel import multihost, sharding
+    from genometester4_tpu_torch.utils import trace
 
     if spec.get("device") == "cpu":
         torch.set_num_threads(1)
@@ -95,22 +95,29 @@ def run(spec: dict) -> int:
     main = getattr(importlib.import_module(
         f"genometester4_tpu_torch.cli.{module}"), entry)
     t0 = time.perf_counter()
-    rc = main(list(spec["argv"]), device=spec.get("device"))
+    with trace.recording():
+        rc = main(list(spec["argv"]), device=spec.get("device"))
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if spec.get("report"):
         import torch.distributed as dist
         files = sorted(os.listdir("."))
+        took = {"exchange": 0.0, "stage": 0.0}
+        for r in trace.rows():
+            if r.name in took:
+                took[r.name] += r.t1 - r.t0
         with open(spec["report"], "w") as f:
             json.dump({"rc": rc, "wall": wall, "rank": dist.get_rank(),
                        "transport": multihost.transport(),
                        "launches": {
-                           "extract": extract_kmers_cuda.launches,
-                           "run_marks": run_encode_cuda.launches,
-                           "merge_runs": merge_runs_cuda.launches},
+                           "extract": trace.total("launch.extract"),
+                           "run_marks": trace.total("launch.run_encode"),
+                           "merge_runs": trace.total("launch.merge_runs")},
                        "calls": calls,
-                       "exchange": multihost.exchange,
+                       "exchange": {"s": took["exchange"],
+                                    "stage_s": took["stage"],
+                                    "bytes": trace.total("exchange.bytes")},
                        "files": files}, f)
     return rc
 

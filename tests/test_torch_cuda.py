@@ -24,6 +24,8 @@ from genometester4_tpu_torch.ops.swalign import sw_fill
 from genometester4_tpu_torch.ops.swalign_cuda import (
     sw_fill_lanes_cuda, sw_fill_shared_cuda, sw_matrices_batch_device,
     sw_pallas_matrices)
+from genometester4_tpu_torch.utils import trace
+
 
 pytestmark = pytest.mark.cuda
 
@@ -157,13 +159,13 @@ def test_count_unique_cuda_equals_cpu(cuda, weighted):
     keys[rng.random(n) < 0.1] = tenc.flag_key(50)
     w = (torch.from_numpy(rng.integers(0, 2 ** 32, n, dtype=np.int64))
          if weighted else None)
-    before = run_encode_cuda.launches
+    before = trace.total("launch.run_encode")
     got = count_unique(keys.to(cuda), None if w is None else w.to(cuda), 50)
     want = count_unique(keys, w, 50)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
     assert got[2] == want[2]
-    assert run_encode_cuda.launches == before + 1
+    assert trace.total("launch.run_encode") == before + 1
 
 
 def test_make_list_cuda_equals_cpu(cuda, tmp_path):
@@ -175,15 +177,16 @@ def test_make_list_cuda_equals_cpu(cuda, tmp_path):
     fa.write_bytes(b">a\n" + seq[:30_000].tobytes() + b"\n>b\n"
                    + seq[30_000:].tobytes() + b"\n")
     for k in (16, 25, 32):
-        before = (extract_kmers_cuda.launches, run_encode_cuda.launches)
+        before = (trace.total("launch.extract"),
+                  trace.total("launch.run_encode"))
         make_list([str(fa)], k, str(tmp_path / "g.list"), chunk_bases=1 << 14,
                   device="cuda")
         make_list([str(fa)], k, str(tmp_path / "c.list"), chunk_bases=1 << 14,
                   device="cpu")
         assert ((tmp_path / "g.list").read_bytes()
                 == (tmp_path / "c.list").read_bytes())
-        assert extract_kmers_cuda.launches > before[0]
-        assert run_encode_cuda.launches > before[1]
+        assert trace.total("launch.extract") > before[0]
+        assert trace.total("launch.run_encode") > before[1]
 
 
 def test_wrappers_reject_bad_tensors(cuda):
@@ -326,13 +329,13 @@ def test_sw_entries_wide_reads(cuda):
     ref = rng.integers(0, 5, 150).astype(np.int8)
     reads = rng.integers(0, 5, (12, 2000)).astype(np.int8)
     reads[1::2, 1500:] = 6
-    before = (sw_fill_lanes_cuda.launches, sw_fill_shared_cuda.launches)
+    before = (trace.total("launch.sw_lanes"), trace.total("launch.sw_shared"))
     got = sw_pallas_matrices(ref, reads, device="cuda")
     want = sw_matrices_batch_device(ref, reads, device="cuda")
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and np.array_equal(g, w)
-    assert (sw_fill_lanes_cuda.launches,
-            sw_fill_shared_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert (trace.total("launch.sw_lanes"),
+            trace.total("launch.sw_shared")) == (before[0] + 1, before[1] + 1)
 
 
 def test_sw_wrappers_reject_bad_tensors(cuda):
@@ -378,13 +381,13 @@ def test_gassembler_cuda_equals_cpu(cuda, tmp_path):
     os.chdir(tmp_path)
     try:
         for device in ("cuda", "cpu"):
-            before = sw_fill_lanes_cuda.launches
+            before = trace.total("launch.sw_lanes")
             out, err = io.StringIO(), io.StringIO()
             with contextlib.redirect_stdout(out), \
                     contextlib.redirect_stderr(err):
                 rc = main(kf.ARGS, device=device)
             results[device] = (rc, out.getvalue(), err.getvalue(),
-                               sw_fill_lanes_cuda.launches - before)
+                               trace.total("launch.sw_lanes") - before)
     finally:
         os.chdir(old)
         (tmp_path / "db.idx").unlink()
@@ -441,7 +444,7 @@ def test_gmer_counter_cuda_equals_cpu(cuda, tmp_path, monkeypatch, k):
     results = {}
     try:
         for device in ("cuda", "cpu"):
-            before = extract_kmers_cuda.launches
+            before = trace.total("launch.extract")
             runs = []
             for args in (["-db", "db.txt", "--stats", "--total", "reads.fq"],
                          ["-db", "db.txt", "--compile_index", f"{device}.idx",
@@ -451,7 +454,7 @@ def test_gmer_counter_cuda_equals_cpu(cuda, tmp_path, monkeypatch, k):
                         contextlib.redirect_stderr(err):
                     rc = main(args, device=device)
                 runs.append((rc, out.getvalue(), err.getvalue()))
-            results[device] = (runs, extract_kmers_cuda.launches - before)
+            results[device] = (runs, trace.total("launch.extract") - before)
         assert filecmp.cmp("cuda.idx", "cpu.idx", shallow=False)
     finally:
         for device in ("cuda", "cpu"):
@@ -488,12 +491,12 @@ def test_make_index_cuda_equals_cpu(cuda, tmp_path, k):
     _genome_fasta(tmp_path / "g.fa", seed=k)
     out = {}
     for device in ("cuda", "cpu"):
-        before = extract_kmers_cuda.launches
+        before = trace.total("launch.extract")
         make_index([str(tmp_path / "g.fa")], k, str(tmp_path / device),
                    chunk_bases=1 << 12, slab_bytes=10_001, device=device,
                    min_count=2)
         out[device] = ((tmp_path / device).read_bytes(),
-                       extract_kmers_cuda.launches - before)
+                       trace.total("launch.extract") - before)
     assert out["cuda"][0] == out["cpu"][0] and len(out["cpu"][0]) > 1000
     assert out["cuda"][1] > 3 and out["cpu"][1] == 0
 
@@ -573,7 +576,8 @@ def test_list_clis_cuda_equal_cpu(cuda, tmp_path):
         d.mkdir()
         old = os.getcwd()
         os.chdir(d)
-        before = (extract_kmers_cuda.launches, run_encode_cuda.launches)
+        before = (trace.total("launch.extract"),
+                  trace.total("launch.run_encode"))
         outs = []
         try:
             for main, args in runs:
@@ -586,8 +590,8 @@ def test_list_clis_cuda_equal_cpu(cuda, tmp_path):
             os.chdir(old)
         files = {p.name: p.read_bytes() for p in d.iterdir()}
         got[device] = (outs, files,
-                       (extract_kmers_cuda.launches - before[0],
-                        run_encode_cuda.launches - before[1]))
+                       (trace.total("launch.extract") - before[0],
+                        trace.total("launch.run_encode") - before[1]))
     assert got["cuda"][:2] == got["cpu"][:2]
     assert all(rc == 0 for rc, _, _ in got["cpu"][0])
     assert len(got["cpu"][1]) == 8
@@ -659,13 +663,13 @@ def test_glistquery_cuda_equals_cpu(cuda, tmp_path):
             listquery.SEARCH_CHUNK = chunk
             outs, launches = [], []
             for args in runs:
-                before = extract_kmers_cuda.launches
+                before = trace.total("launch.extract")
                 out, err = io.StringIO(), io.StringIO()
                 with contextlib.redirect_stdout(out), \
                         contextlib.redirect_stderr(err):
                     rc = main(args, device=device)
                 outs.append((rc, out.getvalue(), err.getvalue()))
-                launches.append(extract_kmers_cuda.launches - before)
+                launches.append(trace.total("launch.extract") - before)
             got[device, chunk] = (outs, launches)
     finally:
         listquery.SEARCH_CHUNK = 1 << 25
@@ -791,13 +795,13 @@ def test_merge_sorted_runs_cuda_payloads_equal_cpu(cuda):
     keys = torch.from_numpy(keys)
     p64 = torch.from_numpy(rng.integers(0, 1 << 62, n))
     p32 = torch.from_numpy(rng.integers(0, 1 << 31, n).astype(np.int32))
-    before = merge_runs_cuda.launches
+    before = trace.total("launch.merge_runs")
     got = merge_sorted_runs((keys.to(cuda), p64.to(cuda), p32.to(cuda)), L)
     want = merge_sorted_runs((keys, p64, p32), L)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
-    assert merge_runs_cuda.launches == before + 1
+    assert trace.total("launch.merge_runs") == before + 1
 
 
 def test_merge_wrappers_reject_bad_tensors(cuda):
@@ -824,12 +828,12 @@ def test_count_kmers_sharded_cuda_equals_cpu(cuda, monkeypatch, mode):
         count_kmers_sharded, make_mesh)
     monkeypatch.setenv("GT4_TPU_MESH_MERGE", mode)
     codes = _codes(17, 300_000).numpy()
-    before = (extract_kmers_cuda.launches, run_encode_cuda.launches,
-              merge_runs_cuda.launches)
+    before = (trace.total("launch.extract"), trace.total("launch.run_encode"),
+              trace.total("launch.merge_runs"))
     got = count_kmers_sharded(codes, 25, make_mesh(
         8, dp=2, devices=["cuda:0"] * 8), chunk_bases=1 << 15)
-    after = (extract_kmers_cuda.launches, run_encode_cuda.launches,
-             merge_runs_cuda.launches)
+    after = (trace.total("launch.extract"), trace.total("launch.run_encode"),
+             trace.total("launch.merge_runs"))
     want = count_kmers_sharded(codes, 25, make_mesh(
         8, dp=2, devices=["cpu"] * 8), chunk_bases=1 << 15)
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
@@ -947,14 +951,14 @@ def test_gmer_counter_default_mesh_across_cards(cards, tmp_path, monkeypatch,
     runs = {}
     for device in ("cuda", "cpu"):
         seen.clear()
-        before = extract_kmers_cuda.launches
+        before = trace.total("launch.extract")
         out, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = main(["-db", "db.txt", "--stats", "--total", "reads.fq"],
                       device=device)
         runs[device] = (rc, out.getvalue(), err.getvalue())
         if device == "cuda":
-            assert extract_kmers_cuda.launches - before == len(seen) >= 8
+            assert trace.total("launch.extract") - before == len(seen) >= 8
             assert {d for d in seen} == {torch.device(c) for c in cards}
     assert runs["cuda"] == runs["cpu"] and runs["cpu"][0] == 0
 

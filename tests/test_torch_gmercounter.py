@@ -30,8 +30,9 @@ from genometester4_tpu_torch.cli import gmer_counter as port_cli
 from genometester4_tpu_torch.formats import gmerdb as port_gmerdb
 from genometester4_tpu_torch.formats import gmerdb_binary as port_binary
 from genometester4_tpu_torch.io import fasta as port_fasta
-from genometester4_tpu_torch.ops import extract_cuda
 from genometester4_tpu_torch.pipelines import gmercount as port_gc
+from genometester4_tpu_torch.utils import trace
+
 
 torch.set_num_threads(1)
 
@@ -411,7 +412,7 @@ def test_count_step_chunk_seams_and_launches(data, monkeypatch):
     #TOTAL_KMERS do not depend on where the seams fall, and the CPU route
     never calls kernel A's wrapper."""
     db = port_gmerdb.load_text_db(str(data / "db32.txt"))
-    before = extract_cuda.extract_kmers_cuda.launches
+    before = trace.total("launch.extract")
     results = []
     for chunk in (64, 1000, 1 << 25):
         c = port_gc.DBCounter(db, chunk_bases=chunk, collect_stats=True,
@@ -422,7 +423,7 @@ def test_count_step_chunk_seams_and_launches(data, monkeypatch):
                         c.result.stats.n_kmers_total))
     assert results[0] == results[1] == results[2]
     assert results[0][1] > 0 and sum(results[0][0]) > 0
-    assert extract_cuda.extract_kmers_cuda.launches == before
+    assert trace.total("launch.extract") == before
 
 
 def test_refuses_a_process_group(monkeypatch, data):

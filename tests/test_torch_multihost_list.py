@@ -119,6 +119,11 @@ def test_glistmaker_group_equals_jax(tmp_path, fasta, nprocs, local):
     assert_group_ok(res, ["mh_16.list"])
     assert files(pd) == {"mh_16.list": want}
     assert res[0][1].decode() == want_out
+    for _, _, _, rep in res:   # from the spans of parallel.multihost
+        assert rep["exchange"]["bytes"] > 0 and rep["exchange"]["s"] > 0
+        assert rep["exchange"]["stage_s"] == 0   # no card tensor to stage
+        assert rep["launches"] == {"extract": 0, "run_marks": 0,
+                                   "merge_runs": 0}
 
 
 def test_glistmaker_group_overflow_on_some_processes(tmp_path):

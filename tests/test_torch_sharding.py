@@ -21,9 +21,10 @@ from genometester4_tpu.io.fasta import parse_sequences
 from genometester4_tpu.ops.encode import join_u64, split_u64
 from genometester4_tpu.parallel import sharding as jsh
 from genometester4_tpu_torch.ops import encode as tenc
-from genometester4_tpu_torch.ops.merge_runs_cuda import merge_runs_cuda
 from genometester4_tpu_torch.parallel import sharding as port
 from genometester4_tpu_torch.pipelines import listmaker as port_lm
+from genometester4_tpu_torch.utils import trace
+
 
 torch.set_num_threads(1)
 
@@ -86,9 +87,11 @@ def test_dup_heavy_shrink_then_grow_equals_jax(rng, monkeypatch,
     want = jsh.count_kmers_sharded(codes, 16, jsh.make_mesh(8, dp=2),
                                    chunk_bases=1 << 12)
     for mode in MODES:
+        reruns = trace.total("mesh.reruns")
         _assert_same(_port_sharded(monkeypatch, mode, codes, 16,
                                    _cpu_mesh(8, 2), chunk_bases=1 << 12),
                      want)
+        assert trace.total("mesh.reruns") > reruns   # counted, as it ran
 
 
 def test_adapt_state_carries_like_jax(rng, monkeypatch, jax_default_merge):
@@ -254,7 +257,7 @@ def test_make_list_mesh_byte_identical(tmp_path, monkeypatch, rng, k):
     CPU."""
     fa = tmp_path / "in.fa"
     fa.write_text(random_fasta(rng, 4, 3000, 9000, n_prob=0.01))
-    launches = merge_runs_cuda.launches
+    launches = trace.total("launch.merge_runs")
     for kw in ({}, {"min_count": 2}):
         port_lm.make_list([str(fa)], k, str(tmp_path / "one.list"),
                           device="cpu", **kw)
@@ -265,7 +268,7 @@ def test_make_list_mesh_byte_identical(tmp_path, monkeypatch, rng, k):
             port_lm.make_list([str(fa)], k, str(tmp_path / "mesh.list"),
                               device="cpu", mesh=_cpu_mesh(8, 2), **kw)
             assert (tmp_path / "mesh.list").read_bytes() == want
-    assert merge_runs_cuda.launches == launches
+    assert trace.total("launch.merge_runs") == launches
     with pytest.raises(ValueError, match="canonical"):
         port_lm.make_list([str(fa)], k, str(tmp_path / "x.list"),
                           device="cpu", mesh=_cpu_mesh(), canonical=False)

@@ -15,6 +15,8 @@ from genometester4_tpu.ops import swalign_pallas as jax_pallas
 from genometester4_tpu_torch.ops import swalign_cuda
 from genometester4_tpu_torch.ops.swalign import sw_fill
 from genometester4_tpu_torch.pipelines import gassemble as port_gas
+from genometester4_tpu_torch.utils import trace
+
 
 torch.set_num_threads(1)
 
@@ -142,14 +144,14 @@ def test_multi_region_equals_per_region_and_jax():
 def test_cpu_tensors_take_the_plain_version():
     """A CPU tensor never reaches a kernel wrapper, and the wrappers refuse
     one; bad dtypes and shapes are refused before any launch."""
-    before = (swalign_cuda.sw_fill_lanes_cuda.launches,
-              swalign_cuda.sw_fill_shared_cuda.launches)
+    before = (trace.total("launch.sw_lanes"),
+              trace.total("launch.sw_shared"))
     ref = np.arange(12, dtype=np.int8) % 4
     reads = np.tile(ref[:10], (3, 1))
     swalign_cuda.sw_matrices_batch_device(ref, reads, device="cpu")
     swalign_cuda.sw_pallas_matrices(ref, reads, device="cpu")
-    assert (swalign_cuda.sw_fill_lanes_cuda.launches,
-            swalign_cuda.sw_fill_shared_cuda.launches) == before
+    assert (trace.total("launch.sw_lanes"),
+            trace.total("launch.sw_shared")) == before
     refs_t = torch.zeros((3, 12), dtype=torch.int8)
     reads_t = torch.zeros((3, 10), dtype=torch.int8)
     nvec_t = torch.full((3,), 12, dtype=torch.int32)
