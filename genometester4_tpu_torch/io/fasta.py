@@ -1,7 +1,9 @@
 """FASTA/FASTQ ingestion: the whole-file parse (``load_file``) and the
 streaming slab parsers (the port's copy of ``load_file``,
 ``iter_code_slabs``, ``iter_slabs_indexed`` and what they call,
-``genometester4_tpu/io/fasta.py``).
+``genometester4_tpu/io/fasta.py``; ``iter_code_slabs`` reads a regular
+file in place and frames and decodes FASTQ in one native call, with the
+same slabs).
 
 Replaces the reference's byte-at-a-time state machine parser
 (src/fasta.c:127-288) with a fully vectorized numpy parse: the whole
@@ -21,8 +23,13 @@ Semantics preserved from the reference:
 
 from __future__ import annotations
 
+import ctypes
 import gzip
+import mmap
+import os
+import stat
 import sys
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -357,32 +364,182 @@ def _parse_fasta_slab_np(head: bytes, continuing: bool):
     return out, n_headers, count_n, int(rec_lengths.sum()), True
 
 
-def _parse_fastq_slab_fast(head: bytes, abs_off: int):
-    """Native FASTQ slab parse (twin of parse_fastq for the slab path;
-    tests/test_listmaker.py + test_gmercounter.py lock the behavior).
-    Returns (codes, SlabMeta) or None to fall back to numpy."""
-    try:
-        import ctypes
+def _fastq_frame_decode(data, at_eof: bool, abs_off: int, piece: int = 0):
+    """Frame and decode FASTQ bytes in one native call
+    (``csrc/slabparse.c``): (bytes consumed, codes, SlabMeta) of the whole
+    4-line groups at the front of ``data``; the rest is the caller's
+    carry. ``at_eof`` makes a last line with no newline a line, as
+    ``parse_fastq`` reads one. ``piece`` (bytes per piece, 0 for the
+    call's own choice) lets the tests set the pieces' seams.
 
-        from genometester4_tpu_torch.utils.native import get_lib
-        lib = get_lib()
-    except Exception:
-        return None
-    data = np.frombuffer(head, np.uint8)
-    codes = np.empty(len(data) + 1, np.uint8)
-    cap = len(data) // 4 + 2
-    rs = np.empty(cap, np.int64)
-    npos = np.empty(cap, np.int64)
-    m = ctypes.c_long(0)
-    tb = ctypes.c_long(0)
-    cn = ctypes.c_long(0)
-    nrec = lib.fgx_parse_fastq_slab(data, len(data), codes,
-                                    ctypes.byref(m), rs, npos,
-                                    ctypes.byref(tb), ctypes.byref(cn))
-    return codes[: m.value], SlabMeta(
-        int(nrec), int(tb.value), int(cn.value),
-        rec_starts=rs[:nrec].copy(),
-        name_pos=npos[:nrec] + abs_off)
+    The codes and the metadata are fresh arrays of the caller's; the
+    record arrays are sized by a bound of 32 bytes a record (pages past
+    the records written are never touched) and sized again, exactly, in
+    the rare slab of shorter records."""
+    from genometester4_tpu_torch.utils.native import get_lib
+    lib = get_lib()
+    raw = np.frombuffer(data, np.uint8)
+    n = len(raw)
+    codes = np.empty(n + 1, np.uint8)
+    out = np.zeros(4, np.int64)
+    cap = n // 32 + 4
+    while True:
+        rec_starts = np.empty(cap, np.int64)
+        name_pos = np.empty(cap, np.int64)
+        used = lib.gt4_fastq_frame_decode(raw, n, int(at_eof), piece, codes,
+                                          rec_starts, name_pos, cap, out)
+        if used != -1:
+            break
+        cap = int(out[1])
+    if used < 0:
+        raise MemoryError("FASTQ slab parse: no memory for its pieces")
+    nrec = int(out[1])
+    name_pos = name_pos[:nrec]
+    name_pos += abs_off
+    return used, codes[:out[0]], SlabMeta(
+        nrec, int(out[2]), int(out[3]), rec_starts=rec_starts[:nrec],
+        name_pos=name_pos)
+
+
+class _BufferPool:
+    """Grow-only pool of slab buffers, reused across slabs and calls. A
+    reader takes one for its life and gives it back when it ends, so two
+    live readers never share one; the ``KEEP`` largest free ones stay.
+    A buffer is an anonymous ``mmap``: its pages are first touched by the
+    read that fills them, not zeroed beforehand as a ``bytearray``'s are,
+    and it has ``rfind`` for the FASTA cut."""
+
+    KEEP = 2
+
+    def __init__(self):
+        self._free: list = []
+        self._lock = threading.Lock()
+
+    def take(self, n: int) -> mmap.mmap:
+        """The smallest free buffer of at least ``n`` bytes, or a new one."""
+        with self._lock:
+            fits = [i for i, b in enumerate(self._free) if len(b) >= n]
+            if fits:
+                return self._free.pop(min(fits,
+                                          key=lambda i: len(self._free[i])))
+        return mmap.mmap(-1, n)
+
+    def give(self, buf: mmap.mmap) -> None:
+        with self._lock:
+            self._free.append(buf)
+            self._free.sort(key=len, reverse=True)
+            del self._free[self.KEEP:]
+
+
+_BUFFERS = _BufferPool()
+
+
+class _FileSlabs:
+    """A regular uncompressed file read in place: each slab is read with
+    ``readinto`` into one pooled buffer, behind the carry ``buf[lo:hi]``
+    that ``compact`` moved to the front, and no read is made past the
+    size ``fstat`` gave. The buffer holds a slab and room for a carry, or
+    only what the file holds when that is less."""
+
+    inplace = True
+
+    def __init__(self, f, size: int, slab_bytes: int):
+        self.f = f
+        self.left = size
+        self.slab = slab_bytes
+        self.buf = b""        # no buffer until the first read
+        self.lo = self.hi = 0
+
+    def compact(self) -> None:
+        """Move the carry to the front of the buffer: one memmove."""
+        n = self.hi - self.lo
+        if self.lo and n:
+            base = ctypes.addressof(
+                (ctypes.c_char * len(self.buf)).from_buffer(self.buf))
+            ctypes.memmove(base, base + self.lo, n)
+        self.lo, self.hi = 0, n
+
+    def read(self) -> bool:
+        """Read the next slab behind the carry (the span "read"); False
+        once the file is read."""
+        want = min(self.slab, self.left)
+        if not want:
+            return False
+        with trace.span("read"):
+            need = self.hi + want
+            if len(self.buf) < need:
+                self._grow(need if want == self.left
+                           else need + (self.slab >> 4))
+            view = memoryview(self.buf)
+            got = 0
+            while got < want:
+                n = self.f.readinto(view[self.hi + got:self.hi + want])
+                if not n:
+                    break
+                got += n
+        self.left = self.left - got if got == want else 0
+        self.hi += got
+        return got > 0
+
+    def _grow(self, size: int) -> None:
+        buf = _BUFFERS.take(size)
+        buf[:self.hi] = self.buf[:self.hi]
+        self._release()
+        self.buf = buf
+
+    def _release(self) -> None:
+        if len(self.buf):
+            _BUFFERS.give(self.buf)
+        self.buf = b""
+
+    def close(self) -> None:
+        self.f.close()
+        self._release()
+
+
+class _StreamSlabs:
+    """stdin, a pipe or gzip: the slabs of ``_iter_raw_slabs``, each
+    joined behind the carry."""
+
+    inplace = False
+
+    def __init__(self, raws):
+        self.raws = raws
+        self.buf = b""
+        self.lo = self.hi = 0
+
+    def compact(self) -> None:
+        pass
+
+    def read(self) -> bool:
+        raw = next(self.raws, None)
+        if raw is None:
+            return False
+        with trace.span("frame"):
+            self.buf = self.buf[self.lo:self.hi] + raw
+            self.lo, self.hi = 0, len(self.buf)
+        return True
+
+    def close(self) -> None:
+        self.raws.close()
+
+
+def _open_slabs(path: str, slab_bytes: int):
+    """The slab source of ``path``: in place for a regular uncompressed
+    file, else the stream reader. The open is the span "read"."""
+    if path != "-":
+        with trace.span("read"):
+            f = open(path, "rb", buffering=0)
+        try:
+            st = os.fstat(f.fileno())
+            if (stat.S_ISREG(st.st_mode)
+                    and os.pread(f.fileno(), 2, 0) != b"\x1f\x8b"):
+                return _FileSlabs(f, st.st_size, slab_bytes)
+        except BaseException:
+            f.close()
+            raise
+        f.close()
+    return _StreamSlabs(_iter_raw_slabs(path, slab_bytes))
 
 
 def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
@@ -395,80 +552,73 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
     k-mer and counts none twice. Concatenating all slabs minus prefixes
     reproduces load_file(path).codes exactly.
 
-    Each slab's work is the span "parse", split into "read" (the file
-    read or inflate), "frame" (the carry join and the cut at the last
-    whole line or 4-line group) and "decode" (the decode and the prefix
-    concat).
+    A regular file is parsed in place: its slabs are read into one reused
+    buffer (``_FileSlabs``), and a FASTQ slab is framed and decoded by one
+    native call. stdin, pipes and gzip are read by ``_iter_raw_slabs``.
+    Every yielded array is the caller's own; only the raw buffer is
+    reused.
+
+    Each slab's work is the span "parse", split into "read" (the open,
+    each read or inflate), "frame" (the carry's move or join, the format
+    sniff and the FASTA cut at the last whole line) and "decode" (the
+    decode and the prefix concat; for FASTQ the one native call, which
+    also finds the cut). The counters ``parse.slabs`` and
+    ``parse.inplace`` count the slabs read and those read in place.
     """
     fmt = None          # 'fasta' | 'fastq'
-    carry = b""         # undecoded partial tail (line / fastq group)
     tail_codes = np.empty(0, np.uint8)  # last k-1 emitted codes
     open_record = False  # a FASTA record spans the seam
-    abs_off = 0         # stream byte offset of buf[0]
+    abs_off = 0         # stream byte offset of src.buf[src.lo]
+    src = None
 
-    def frame(raw: bytes):
-        """The bytes ready to decode and how ("fasta": whole lines,
-        "line": part of a line longer than a slab, "fastq": whole 4-line
-        groups), or None; the rest stays in ``carry``."""
-        nonlocal fmt, carry, abs_off
-        buf = carry + raw
+    def frame():
+        """What is ready to decode at the front of the carry and the new
+        slab, src.buf[lo:hi], and how ("fastq": the native call finds its
+        whole 4-line groups, "fasta": whole lines, "line": part of a line
+        longer than a slab), or None; what is not taken stays in the
+        carry."""
+        nonlocal fmt, abs_off
+        buf, lo, hi = src.buf, src.lo, src.hi
         if fmt is None:
-            i = 0
-            while i < len(buf) and buf[i] in (_NL, _CR, ord(" "), ord("\t")):
+            i = lo
+            while i < hi and buf[i] in (_NL, _CR, ord(" "), ord("\t")):
                 i += 1
-            if i >= len(buf):
-                abs_off += len(buf)
-                carry = b""
+            abs_off += i - lo
+            src.lo = lo = i
+            if i >= hi:
                 return None
-            buf = buf[i:]
-            abs_off += i
-            if buf[0] == _GT:
+            if buf[i] == _GT:
                 fmt = "fasta"
-            elif buf[0] == _AT:
+            elif buf[i] == _AT:
                 fmt = "fastq"
             else:
                 raise ValueError(
-                    f"unrecognized sequence format (first byte {buf[0]!r})")
-        if fmt == "fasta":
-            cut = buf.rfind(b"\n") + 1
-            if cut:
-                head, carry = buf[:cut], buf[cut:]
-                return "fasta", head
-            # no newline in a whole slab: a monster single-line sequence
-            # — consume it directly unless it could be a header (headers
-            # are assumed to fit one slab)
-            if buf[:1] == b">" or not open_record:
-                carry = buf
-                return None
-            head, carry = buf, b""
-            if head.endswith(b"\r"):
-                # could be the first half of a CRLF split across slabs —
-                # the whole-file parse strips it (_strip_cr)
-                head, carry = head[:-1], b"\r"
-            return "line", head
-        # fastq: records are 4-line groups and never span slabs
-        nl = np.flatnonzero(np.frombuffer(buf, np.uint8) == _NL)
-        n_groups = len(nl) // 4
-        if n_groups == 0:
-            carry = buf
+                    f"unrecognized sequence format (first byte {buf[i]!r})")
+        if fmt == "fastq":
+            return "fastq", None
+        cut = buf.rfind(b"\n", lo, hi) + 1
+        if cut:
+            src.lo = cut
+            return "fasta", memoryview(buf)[lo:cut]
+        # no newline in a whole slab: a monster single-line sequence
+        # — consume it directly unless it could be a header (headers
+        # are assumed to fit one slab)
+        if buf[lo] == _GT or not open_record:
             return None
-        cut = int(nl[4 * n_groups - 1]) + 1
-        head, carry = buf[:cut], buf[cut:]
-        return "fastq", head
+        # a trailing '\r' could be the first half of a CRLF split across
+        # slabs — the whole-file parse strips it (_strip_cr)
+        end = hi - 1 if buf[hi - 1] == _CR else hi
+        src.lo = end
+        return "line", memoryview(buf)[lo:end]
 
-    def decode(kind: str, head: bytes):
+    def decode(kind: str, head):
         nonlocal tail_codes, open_record, abs_off
         if kind == "fastq":
-            fast = _parse_fastq_slab_fast(head, abs_off)
-            if fast is None:
-                parsed = parse_fastq(head)
-                fast = parsed.codes, SlabMeta(
-                    parsed.n_records, parsed.total_bases, parsed.count_n,
-                    rec_starts=parsed.rec_starts,
-                    name_pos=(parsed._name_spans[:, 0].astype(np.int64)
-                              + abs_off))
-            abs_off += len(head)
-            return fast
+            used, codes, meta = _fastq_frame_decode(
+                memoryview(src.buf)[src.lo:src.hi], False, abs_off)
+            src.lo += used
+            abs_off += used
+            return (codes, meta) if used else None
         if kind == "line":
             seq = np.frombuffer(head, np.uint8)
             count_n = int(((seq == ord("N")) | (seq == ord("n"))).sum())
@@ -479,7 +629,8 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
             codes, n_new, count_n, bases, _ = _parse_fasta_slab(
                 head, open_record)
             prefix = tail_codes
-            if open_record and head[:1] == b">" and len(tail_codes):
+            if open_record and len(head) and head[0] == _GT \
+                    and len(tail_codes):
                 # record ended exactly at the seam: separate windows
                 prefix = np.concatenate([tail_codes,
                                          np.full(1, 255, np.uint8)])
@@ -492,36 +643,45 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
                 else np.concatenate([tail_codes, codes])[-(k - 1):]
         return out, meta
 
-    raws = _iter_raw_slabs(path, slab_bytes)
-    while True:
-        item = None
-        with trace.span("parse"):
-            raw = next(raws, None)
-            if raw is not None:
+    try:
+        while True:
+            item = None
+            with trace.span("parse"):
+                if src is None:
+                    src = _open_slabs(path, slab_bytes)
                 with trace.span("frame"):
-                    ready = frame(raw)
-                if ready is not None:
-                    with trace.span("decode"):
-                        item = decode(*ready)
-        if raw is None:
-            break
+                    src.compact()
+                more = src.read()
+                if more:
+                    trace.count("parse.slabs")
+                    if src.inplace:
+                        trace.count("parse.inplace")
+                    with trace.span("frame"):
+                        ready = frame()
+                    if ready is not None:
+                        with trace.span("decode"):
+                            item = decode(*ready)
+            if not more:
+                break
+            if item is not None:
+                yield item
+        # EOF: flush whatever remains as final (possibly unterminated) lines
+        carry = bytes(src.buf[src.lo:src.hi])
+        if not carry.strip():
+            return
+        with trace.span("parse"), trace.span("decode"):
+            if fmt == "fasta":
+                item = decode("fasta", carry)
+            elif carry.count(b"\n") >= 3:   # a whole FASTQ record at least
+                _, codes, meta = _fastq_frame_decode(carry, True, abs_off)
+                if not meta.n_records:
+                    raise ValueError("no complete FASTQ records")
+                item = codes, meta
         if item is not None:
             yield item
-    # EOF: flush whatever remains as final (possibly unterminated) lines
-    if not carry.strip():
-        return
-    with trace.span("parse"), trace.span("decode"):
-        if fmt == "fasta":
-            item = decode("fasta", carry)
-        elif carry.count(b"\n") >= 3:   # a whole FASTQ record at least
-            parsed = parse_fastq(carry)
-            item = parsed.codes, SlabMeta(
-                parsed.n_records, parsed.total_bases, parsed.count_n,
-                rec_starts=parsed.rec_starts,
-                name_pos=(parsed._name_spans[:, 0].astype(np.int64)
-                          + abs_off))
-    if item is not None:
-        yield item
+    finally:
+        if src is not None:
+            src.close()
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""The host C library (``native/fastgt_exact.c`` + ``native/listkernel.c``):
-build, load and the ctypes signatures the port calls.
+"""The host C library (``native/fastgt_exact.c`` + ``native/listkernel.c``
++ the port's own ``csrc/slabparse.c``): build, load and the ctypes
+signatures the port calls.
 
 The port's copy of ``genometester4_tpu/native_build.py`` and of the parts
 of ``genometester4_tpu/models/fastgt_native.py`` its host code reaches:
-the FASTA/FASTQ slab parsers (``io.fasta``), the SW fill and traceback
+the FASTA/FASTQ slab parsers and the one-call FASTQ frame and decode
+(``io.fasta``), the SW fill and traceback
 (``ops.swalign``), gassembler's fused host alignment, gapped alignment,
 grouping and calling (``pipelines.gassemble``), gmer_counter's text
 database parser, count formatter and host counting route
@@ -38,12 +40,15 @@ REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 NATIVE_DIR = os.path.join(REPO_DIR, "native")
 SRC_FASTGT = os.path.join(NATIVE_DIR, "fastgt_exact.c")
 SRC_LIST = os.path.join(NATIVE_DIR, "listkernel.c")
+SRC_SLAB = os.path.join(REPO_DIR, "genometester4_tpu_torch", "csrc",
+                        "slabparse.c")
 BUILD_DIR = os.path.join(REPO_DIR, "genometester4_tpu_torch", "_build")
 
 # plain x86-64 codegen for fastgt_exact.c (-O2, no FMA contraction to
 # diverge from the reference's default-flag build); listkernel.c is
 # integer-only, so x86-64-v3 cannot change a result bit, with plain
-# codegen as the fallback where cc rejects the flag
+# codegen as the fallback where cc rejects the flag; slabparse.c, integer
+# only too, takes listkernel.c's flags
 CC_FASTGT = ["cc", "-O2", "-Wall", "-c", "-fPIC", "-fopenmp"]
 CC_LIST = ["cc", "-O3", "-funroll-loops", "-march=x86-64-v3", "-Wall", "-c",
            "-fPIC", "-fopenmp"]
@@ -58,7 +63,7 @@ _raw_lib = None
 
 def library_path() -> str:
     h = hashlib.sha256(repr((CC_FASTGT, CC_LIST, CC_LINK)).encode())
-    for src in (SRC_FASTGT, SRC_LIST):
+    for src in (SRC_FASTGT, SRC_LIST, SRC_SLAB):
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libgt4native_{h.hexdigest()[:16]}.so")
@@ -66,15 +71,18 @@ def library_path() -> str:
 
 def _compile(path: str) -> None:
     stem = f"{path[:-3]}.{os.getpid()}"
-    o1, o2, tmp = f"{stem}.fastgt.o", f"{stem}.listk.o", f"{stem}.so"
+    o1, o2, o3 = (f"{stem}.fastgt.o", f"{stem}.listk.o",
+                  f"{stem}.slab.o")
+    tmp = f"{stem}.so"
     try:
         subprocess.run([*CC_FASTGT, SRC_FASTGT, "-o", o1], check=True)
-        if subprocess.run([*CC_LIST, SRC_LIST, "-o", o2]).returncode != 0:
-            subprocess.run([*CC_LIST_PLAIN, SRC_LIST, "-o", o2], check=True)
-        subprocess.run([*CC_LINK, o1, o2, "-o", tmp, "-lm"], check=True)
+        for src, obj in ((SRC_LIST, o2), (SRC_SLAB, o3)):
+            if subprocess.run([*CC_LIST, src, "-o", obj]).returncode != 0:
+                subprocess.run([*CC_LIST_PLAIN, src, "-o", obj], check=True)
+        subprocess.run([*CC_LINK, o1, o2, o3, "-o", tmp, "-lm"], check=True)
         os.replace(tmp, path)   # atomic publish
     finally:
-        for p in (o1, o2, tmp):
+        for p in (o1, o2, o3, tmp):
             if os.path.exists(p):
                 os.remove(p)
 
@@ -192,6 +200,10 @@ def get_lib() -> ctypes.CDLL:
         lib.fgx_parse_fastq_slab.restype = ctypes.c_long
         lib.fgx_parse_fastq_slab.argtypes = [
             u8p, ctypes.c_long, u8p, lp, i64p, i64p, lp, lp]
+        lib.gt4_fastq_frame_decode.restype = ctypes.c_long
+        lib.gt4_fastq_frame_decode.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_int, ctypes.c_long, u8p, i64p,
+            i64p, ctypes.c_long, i64p]
         # gmer_counter: the text database parser and the count formatter
         lib.fgx_parse_text_db.restype = ctypes.c_long
         lib.fgx_parse_text_db.argtypes = [
