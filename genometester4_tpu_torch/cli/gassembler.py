@@ -108,6 +108,7 @@ from genometester4_tpu_torch.pipelines.gassemble import (
     A, C, G, T, N, GAP, NONE, CHR_NAMES, CHR_MT, N2C, Assembler, Call,
     CallBlock, Params, Region, SeqFiles, auto_sex, chr_from_string,
     find_coverage)
+from genometester4_tpu_torch.utils import trace
 
 MAX_KMERS = 1024
 
@@ -213,6 +214,12 @@ class OutputQueue:
         self.finished.insert(0, cb)
 
     def flush(self):
+        """Print every finished block that no block still in processing
+        precedes: the span "print"."""
+        with trace.span("print"):
+            self._flush()
+
+    def _flush(self):
         min_chr_p = min_start_p = 0xFFFFFFFF
         for cb in self.processing:
             if (cb.chr < min_chr_p
@@ -370,6 +377,14 @@ class OutputQueue:
 
 
 def main(argv=None, device=None) -> int:
+    """One gassembler run: the job span "gassemble", with "load" (the
+    index, the coverage, the sequence files and the region file) and
+    the spans of ``pipelines.gassemble`` and ``OutputQueue`` below it."""
+    with trace.span("gassemble"):
+        return _main(argv, device)
+
+
+def _main(argv, device) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     p = Params()
     db_name = None
@@ -569,71 +584,73 @@ def main(argv=None, device=None) -> int:
         sys.stderr.write(_usage_text(p, n_threads_c))
         return 1
 
-    from genometester4_tpu_torch.formats.gmerdb_binary import load_binary_db
-    from genometester4_tpu_torch.utils.native import srand
+    with trace.span("load"):
+        from genometester4_tpu_torch.formats.gmerdb_binary import \
+            load_binary_db
+        from genometester4_tpu_torch.utils.native import srand
 
-    p.db_name = db_name   # echoed by the -DD Arguments trace
-    srand(1)
-    # stderr chrome order mirrors the reference main
-    # (src/gassembler.c:929-961): db load -> coverage -> SNV/FP ->
-    # "Loading read sequences" -> sex
-    if p.debug:
-        sys.stderr.write("Loading reads database %s... " % db_name)
-    from genometester4_tpu_torch.utils.gt4mmap import gt4_mmap_fail
-    mf = gt4_mmap_fail(db_name)
-    if mf is not None:
-        sys.stderr.write(mf)
-        sys.stderr.write("cannot mmap (no such file?)\n")
-        return 1
-    db = load_binary_db(db_name, lazy=True)
-    if db is None:
-        sys.stderr.write("cannot read (wrong file format?)\n")
-        return 1
-    if db.index is None:
-        sys.stderr.write("no index\n")
-        return 1
-    if p.debug:
-        sys.stderr.write("done\n")
-
-    coverage = p.coverage
-    if coverage == 0:
-        coverage = find_coverage(db.index, debug=p.debug)
-
-    snvs = fps = None
-    if snv_db_name:
-        from genometester4_tpu_torch.pipelines.gassemble import read_snvs
-        sys.stderr.write("Loading SNV database\n")
-        snvs = read_snvs(snv_db_name)
-        sys.stderr.write("Num SNVs %d\n" % len(snvs))
-    if fp_db_name:
-        from genometester4_tpu_torch.pipelines.gassemble import read_fps
-        sys.stderr.write("Loading known false positives\n")
-        fps = read_fps(fp_db_name, debug=p.debug)
-        sys.stderr.write("Num false positives %d\n" % len(fps))
-
-    if p.debug:
-        sys.stderr.write("Loading read sequences\n")
-    from genometester4_tpu_torch.pipelines.gassemble import SeqFilesError
-    try:
-        files = SeqFiles(db.index.files, seq_dir)
-    except SeqFilesError:
-        sys.stderr.write("Cannot read sequences: terminating\n")
-        return 1
-    sex = p.sex
-    if sex == 0:
-        sex = auto_sex(db)
-    asm = Assembler(db, files, p, sex, coverage, snvs=snvs, fps=fps,
-                    device=device)
-    out = sys.stdout
-
-    if input_name:
+        p.db_name = db_name   # echoed by the -DD Arguments trace
+        srand(1)
+        # stderr chrome order mirrors the reference main
+        # (src/gassembler.c:929-961): db load -> coverage -> SNV/FP ->
+        # "Loading read sequences" -> sex
+        if p.debug:
+            sys.stderr.write("Loading reads database %s... " % db_name)
         from genometester4_tpu_torch.utils.gt4mmap import gt4_mmap_fail
-        mf = gt4_mmap_fail(input_name)
+        mf = gt4_mmap_fail(db_name)
         if mf is not None:
-            # src/gassembler.c:1000-1003 / 1035-1038
             sys.stderr.write(mf)
-            sys.stderr.write(f"Cannot mmap input file {input_name}\n")
+            sys.stderr.write("cannot mmap (no such file?)\n")
             return 1
+        db = load_binary_db(db_name, lazy=True)
+        if db is None:
+            sys.stderr.write("cannot read (wrong file format?)\n")
+            return 1
+        if db.index is None:
+            sys.stderr.write("no index\n")
+            return 1
+        if p.debug:
+            sys.stderr.write("done\n")
+
+        coverage = p.coverage
+        if coverage == 0:
+            coverage = find_coverage(db.index, debug=p.debug)
+
+        snvs = fps = None
+        if snv_db_name:
+            from genometester4_tpu_torch.pipelines.gassemble import read_snvs
+            sys.stderr.write("Loading SNV database\n")
+            snvs = read_snvs(snv_db_name)
+            sys.stderr.write("Num SNVs %d\n" % len(snvs))
+        if fp_db_name:
+            from genometester4_tpu_torch.pipelines.gassemble import read_fps
+            sys.stderr.write("Loading known false positives\n")
+            fps = read_fps(fp_db_name, debug=p.debug)
+            sys.stderr.write("Num false positives %d\n" % len(fps))
+
+        if p.debug:
+            sys.stderr.write("Loading read sequences\n")
+        from genometester4_tpu_torch.pipelines.gassemble import SeqFilesError
+        try:
+            files = SeqFiles(db.index.files, seq_dir)
+        except SeqFilesError:
+            sys.stderr.write("Cannot read sequences: terminating\n")
+            return 1
+        sex = p.sex
+        if sex == 0:
+            sex = auto_sex(db)
+        asm = Assembler(db, files, p, sex, coverage, snvs=snvs, fps=fps,
+                        device=device)
+        out = sys.stdout
+
+        if input_name:
+            from genometester4_tpu_torch.utils.gt4mmap import gt4_mmap_fail
+            mf = gt4_mmap_fail(input_name)
+            if mf is not None:
+                # src/gassembler.c:1000-1003 / 1035-1038
+                sys.stderr.write(mf)
+                sys.stderr.write(f"Cannot mmap input file {input_name}\n")
+                return 1
 
     if input_name and only_pos:
         # --pos: scan the region file for the covering region and run the
@@ -674,8 +691,6 @@ def main(argv=None, device=None) -> int:
         return 0
 
     if input_name:
-        with open(input_name, "rb") as f:
-            data = f.read()
         out.write("#KATK version: %s\n" % REF_VERSION_3)
         out.write("#KMer Database: %s\n" % db_name)
         if coverage >= 0:
@@ -686,28 +701,31 @@ def main(argv=None, device=None) -> int:
         out.write("\n")
 
         oq = OutputQueue(out, p)
-        pos = 0
-        line_no = 0
-        n = len(data)
-        regions = []
-        while pos < n and line_no < max_regions:
-            toks = _split_line(data, pos, MAX_KMERS + 4)
-            while pos < n and data[pos] != 0x0A:
-                pos += 1
-            while pos < n and data[pos] <= 0x20:
-                pos += 1
-            line_no += 1
-            if len(toks) < 5:
-                sys.stderr.write("process: Too few tokens at line %u\n"
-                                 % line_no)
-                continue
-            chrs = data[toks[0][0]:toks[0][1]][:31].decode("latin1")
-            chr_ = chr_from_string(chrs)
-            start = int(data[toks[1][0]:toks[1][1]])
-            end = int(data[toks[2][0]:toks[2][1]])
-            ref = data[toks[3][0]:toks[3][1]].decode("latin1")
-            kmers = [data[s:e].decode("latin1") for s, e in toks[4:]]
-            regions.append(Region(chr_, start, end, ref, kmers))
+        with trace.span("load"):
+            with open(input_name, "rb") as f:
+                data = f.read()
+            pos = 0
+            line_no = 0
+            n = len(data)
+            regions = []
+            while pos < n and line_no < max_regions:
+                toks = _split_line(data, pos, MAX_KMERS + 4)
+                while pos < n and data[pos] != 0x0A:
+                    pos += 1
+                while pos < n and data[pos] <= 0x20:
+                    pos += 1
+                line_no += 1
+                if len(toks) < 5:
+                    sys.stderr.write("process: Too few tokens at line %u\n"
+                                     % line_no)
+                    continue
+                chrs = data[toks[0][0]:toks[0][1]][:31].decode("latin1")
+                chr_ = chr_from_string(chrs)
+                start = int(data[toks[1][0]:toks[1][1]])
+                end = int(data[toks[2][0]:toks[2][1]])
+                ref = data[toks[3][0]:toks[3][1]].decode("latin1")
+                kmers = [data[s:e].decode("latin1") for s, e in toks[4:]]
+                regions.append(Region(chr_, start, end, ref, kmers))
 
         def _shell(region):
             return CallBlock(region.chr, region.start, region.end, haploid=(

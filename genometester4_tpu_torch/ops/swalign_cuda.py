@@ -123,7 +123,8 @@ def _to_numpy(mats) -> list:
             for t in mats]
     for h, t in zip(host, mats):
         h.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(mats[0].device).synchronize()
+    with trace.span("sw_wait", wait=True):
+        torch.cuda.current_stream(mats[0].device).synchronize()
     return [h.numpy() for h in host]
 
 
@@ -138,8 +139,17 @@ def sw_matrices_batch_device_multi(region_inputs, device=None):
     views of the launch's one host copy, not copies of their own: copying
     every region's slice out faulted in fresh pages for each matrix, and
     on the H100 host that took longer than the fill itself.
+
+    The span "sw" (its wait on the copy back "sw_wait"); the counters
+    "sw.cells", the cells the fill writes (B x (n_cap + 1) x (m_cap + 1)),
+    and "sw.in_bytes", the bytes of references, reads and lengths it
+    reads (B x (n_cap + m_cap + 4)).
     """
-    dev = resolve_device(device)
+    with trace.span("sw"):
+        return _batch_multi(region_inputs, resolve_device(device))
+
+
+def _batch_multi(region_inputs, dev):
     n_cap = _round_up(max(max(len(r) for r, _ in region_inputs), 8), 8)
     m_cap = _round_up(max(max(b.shape[1] for _, b in region_inputs), 8), 8)
     B = sum(b.shape[0] for _, b in region_inputs)
@@ -156,6 +166,8 @@ def sw_matrices_batch_device_multi(region_inputs, device=None):
     refs_t, reads_t, nvec_t = (torch.from_numpy(a).to(dev)
                                for a in (refs, reads, nvec))
     fill = sw_fill_lanes_cuda if refs_t.is_cuda else sw_fill
+    trace.count("sw.cells", B * (n_cap + 1) * (m_cap + 1))
+    trace.count("sw.in_bytes", B * (n_cap + m_cap + 4))
     score, sx, sy = _to_numpy(fill(refs_t, reads_t, nvec_t))
     out = []
     off = 0

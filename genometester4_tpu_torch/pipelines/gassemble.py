@@ -24,6 +24,14 @@ after stay on the host. ``GT4_TPU_DEVICE_SW=0``, ``-DDD`` and forked
 workers take the native host route (``fgx_sw_align_region8``), as in the
 JAX package. torch is imported when the first ``Assembler`` is built.
 
+Spans (``utils.trace``), under the CLI's job span "gassemble": "gather"
+(the index lookups and the read fetch of a region), "sw" (the fill,
+``ops.swalign_cuda``), "align" (traceback, filters, rows, the gapped
+alignment and the divergence tags), "group" (the native group phase) and
+"call" (the call phase, or the no-call fill of a failed region).
+Counters: "katk.regions" (regions assembled), "katk.reads" (reads
+gathered) and "katk.aligned" (reads kept by the alignment filters).
+
 All constants mirror src/gassembler.c:56-67 and the advanced-flag
 defaults at src/gassembler.c:646-696.
 """
@@ -37,6 +45,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from genometester4_tpu_torch.ops import swalign
+from genometester4_tpu_torch.utils import trace
 
 # nucleotide codes (src/matrix.h:8-20)
 A, C, G, T, N, GAP, NONE = 0, 1, 2, 3, 4, 5, 6
@@ -918,9 +927,11 @@ class Assembler:
                 np.uint8)].astype(np.int8)
             max_rpk = (2000 if region.chr == CHR_MT
                        else MAX_READS_PER_KMER)
-            infos = get_unique_reads(self.db, self.files, region.kmers,
-                                     p, max_rpk)
-            reads = get_read_sequences(infos, self.files, p)
+            with trace.span("gather"):
+                infos = get_unique_reads(self.db, self.files, region.kmers,
+                                         p, max_rpk)
+                reads = get_read_sequences(infos, self.files, p)
+                trace.count("katk.reads", len(reads))
             self._sw_cache[id(region)] = [reads, None]
             if len(reads) >= MIN_READS:
                 window.append((id(region), ref_codes, reads))
@@ -947,24 +958,30 @@ class Assembler:
             sys.stderr.write(region.ref[:region.end - region.start])
             sys.stderr.write("".join(" %s" % km for km in region.kmers))
             sys.stderr.write("\n")
+        trace.count("katk.regions")
         res, state = self._align_phase(region)
         if res > 0:
             res = self._group_phase(region, cb, state)
         if res <= 0:
-            p = self.p
-            n_calls = (region.end - region.start - 2 * p.skip_end_align
-                       - 2 * p.skip_end_call)
-            ref_codes = _C2N[np.frombuffer(
-                region.ref[:region.end - region.start].encode("latin1"),
-                np.uint8)]
-            for i in range(max(0, n_calls)):
-                off = p.skip_end_align + p.skip_end_call + i
-                cb.calls.append(Call(
-                    pos=region.start + off,
-                    ref=int(ref_codes[off]) if off < len(ref_codes) else N,
-                    counts=np.zeros(GAP + 1, np.int64),
-                    nucl=(NONE, NONE), prev_ref="."))
+            with trace.span("call"):
+                self._no_calls(region, cb)
         return res
+
+    def _no_calls(self, region: Region, cb: CallBlock):
+        """The no-call fill of a region that failed to align or group."""
+        p = self.p
+        n_calls = (region.end - region.start - 2 * p.skip_end_align
+                   - 2 * p.skip_end_call)
+        ref_codes = _C2N[np.frombuffer(
+            region.ref[:region.end - region.start].encode("latin1"),
+            np.uint8)]
+        for i in range(max(0, n_calls)):
+            off = p.skip_end_align + p.skip_end_call + i
+            cb.calls.append(Call(
+                pos=region.start + off,
+                ref=int(ref_codes[off]) if off < len(ref_codes) else N,
+                counts=np.zeros(GAP + 1, np.int64),
+                nucl=(NONE, NONE), prev_ref="."))
 
     # -- align phase (src/gassembler.c:1209-1325) -------------------------
     def _align_phase(self, region: Region):
@@ -985,11 +1002,13 @@ class Assembler:
         else:
             sw_mats = None
             max_rpk = 2000 if region.chr == CHR_MT else MAX_READS_PER_KMER
-            infos = get_unique_reads(self.db, self.files, region.kmers, p,
-                                     max_rpk)
-            if p.debug > 1:
-                sys.stderr.write("Got %u unique reads\n" % len(infos))
-            reads = get_read_sequences(infos, self.files, p)
+            with trace.span("gather"):
+                infos = get_unique_reads(self.db, self.files, region.kmers,
+                                         p, max_rpk)
+                if p.debug > 1:
+                    sys.stderr.write("Got %u unique reads\n" % len(infos))
+                reads = get_read_sequences(infos, self.files, p)
+                trace.count("katk.reads", len(reads))
         if p.print_reads:
             for i, r in enumerate(reads):
                 sys.stdout.write(f">Read_{i}\n{r.seq}\n")
@@ -1011,8 +1030,16 @@ class Assembler:
             return -1, None
         if p.debug > 1:
             sys.stderr.write("Aligning reads to reference...")
+        with trace.span("align"):
+            return self._align_reads(region, ref_codes, reads, sw_mats)
+
+    def _align_reads(self, region: Region, ref_codes, reads, sw_mats):
+        """The reads aligned, gapped and tagged at the divergent
+        positions (src/gassembler.c:1243-1325)."""
+        p = self.p
         a_reads, a = align_reads(ref_codes, reads, p, sw_mats=sw_mats,
                                  device=self.device)
+        trace.count("katk.aligned", len(a_reads))
         if p.debug > 1:
             sys.stderr.write("\n")
         p_len, aligned_ref, ref_pos, ga = create_gapped_alignment(
@@ -1088,6 +1115,18 @@ class Assembler:
 
     # -- group phase (src/gassembler.c:1327-1591) --------------------------
     def _group_phase(self, region: Region, cb: CallBlock, state):
+        with trace.span("group"):
+            grouped = self._group(region, state)
+        if grouped is None:
+            return 0
+        with trace.span("call"):
+            self._recalculate_and_call(region, cb, state, *grouped)
+        return state["p_len"]
+
+    def _group(self, region: Region, state):
+        """The native group phase: the arguments of
+        ``_recalculate_and_call`` after (region, cb, state), or None
+        without a good group."""
         p = self.p
         a_reads = state["a_reads"]
         ga = state["ga"]
@@ -1189,14 +1228,10 @@ class Assembler:
         good_groups = [int(good_buf[i]) for i in range(n_good.value)]
 
         if not good_groups:
-            return 0
-
-        self._recalculate_and_call(
-            region, cb, state, group_of, included, good_groups,
-            n_groups, sizes, divergent, min_cov, max_cov, compat_n,
-            consensus, tags, masks, read_tags, read_masks,
-            haploid=(max_groups == 1))
-        return p_len
+            return None
+        return (group_of, included, good_groups, n_groups, sizes, divergent,
+                min_cov, max_cov, compat_n, consensus, tags, masks,
+                read_tags, read_masks, max_groups == 1)
 
     # -- call phase (src/gassembler.c:1593-1855) ---------------------------
     def _recalculate_and_call(self, region, cb, state, group_of, included,
