@@ -20,9 +20,12 @@ On the port the SW fill of every region runs on the ``Assembler``'s
 device: kernel C (``ops.swalign_cuda``, one launch per window of regions,
 ``Assembler.prefetch_device_sw``) on CUDA, its plain version
 ``ops.swalign.sw_fill`` on the CPU; traceback, filters and everything
-after stay on the host. ``GT4_TPU_DEVICE_SW=0``, ``-DDD`` and forked
-workers take the native host route (``fgx_sw_align_region8``), as in the
-JAX package. torch is imported when the first ``Assembler`` is built.
+after stay on the host, a region's traceback, filters and rows in one
+native call over the fill's matrices (``csrc/swtrace.c``).
+``GT4_TPU_DEVICE_SW=0`` and forked workers take the native host route
+(``fgx_sw_align_region8``), as in the JAX package; ``-DDD`` fills and
+traces each read on the host. torch is imported when the first
+``Assembler`` is built.
 
 Spans (``utils.trace``), under the CLI's job span "gassemble": "gather"
 (the index lookups and the read fetch of a region), "sw" (the fill,
@@ -30,7 +33,9 @@ Spans (``utils.trace``), under the CLI's job span "gassemble": "gather"
 alignment and the divergence tags), "group" (the native group phase) and
 "call" (the call phase, or the no-call fill of a failed region).
 Counters: "katk.regions" (regions assembled), "katk.reads" (reads
-gathered) and "katk.aligned" (reads kept by the alignment filters).
+gathered), "katk.aligned" (reads kept by the alignment filters) and
+"align.native" (reads handed to the native traceback over filled
+matrices).
 
 All constants mirror src/gassembler.c:56-67 and the advanced-flag
 defaults at src/gassembler.c:646-696.
@@ -674,85 +679,108 @@ def align_reads(ref_codes: np.ndarray, reads: list, params: Params,
     (src/gassembler.c:1925-2006). Returns (aligned_reads, a int32[na, n]).
 
     ``sw_mats``: precomputed (score, sx, sy) from a cross-region
-    batched device launch (Assembler.prefetch_device_sw) — the host
-    traceback/filter/row-build below is unchanged, so output ordering
-    and bytes are identical to the per-region path. Without them the
+    batched device launch (Assembler.prefetch_device_sw). Without them the
     device route fills this region alone on ``device`` (kernel C on CUDA,
-    ``sw_fill`` on the CPU)."""
+    ``sw_fill`` on the CPU). Either way one native call
+    (``gt4_sw_align_mats``, counter "align.native") takes the traceback,
+    filters and row build of every read from the matrices in place, in
+    read order, so output ordering and bytes are those of the host route
+    (``fgx_sw_align_region8``, its own fill fused in front)."""
     n = len(ref_codes)
     if not reads:
         return [], np.zeros((0, n), np.int32)
-    batch = pad_reads(reads)
-    m_cap = batch.shape[1]
-    # -DDD: per-read host fills with gap-state export feed the matrix/
-    # alignment dumps, so the fused native kernel is bypassed
-    use_slow = params.debug > 2
-    if use_slow:
-        score = sx = sy = None
-    elif sw_mats is not None:
-        score, sx, sy = sw_mats
-    elif device_sw_enabled():
-        from genometester4_tpu_torch.ops import swalign_cuda
-        score, sx, sy = swalign_cuda.sw_matrices_batch_device(
-            ref_codes.astype(np.int8), batch, device=device)
-    else:
-        # host: one fused C call per region (fill + traceback + filters
-        # + row build, native fgx_sw_align_region) — the scratch matrix
-        # is reused read-to-read so the DP stays L2-resident, and the
-        # 20k-per-run ctypes round-trips of the per-read traceback path
-        # are gone
-        import ctypes
+    if params.debug > 2:
+        return _align_reads_traced(ref_codes, reads, params)
+    import ctypes
 
-        from genometester4_tpu_torch.utils.native import get_lib
-        lib = get_lib()
-        B = len(reads)
-        read_lens = np.array([len(r.nucl) for r in reads], np.int32)
-        cap_rows = min(B, MAX_ALIGNED_READS)
-        rows = np.empty((max(1, cap_rows), n), np.int32)
-        keep_idx = np.empty(max(1, cap_rows), np.int32)
-        hit_cap = ctypes.c_int(0)
-        stats = np.full(B * 6, -2, np.int32)  # -2 = never processed
-        kept = lib.fgx_sw_align_region8(
-            np.ascontiguousarray(ref_codes, np.int8), n, batch, B, m_cap,
-            read_lens, params.max_divergent, params.min_align_len,
-            MAX_ENDGAP, MAX_GAPS, MAX_ALIGNED_READS, rows, keep_idx,
-            ctypes.byref(hit_cap), stats)
-        if kept < 0:
-            raise MemoryError("sw align scratch allocation failed")
-        if params.debug > 1:
-            # post-hoc in read order == the reference's in-loop order
-            # (nothing else writes stderr during the align loop); reads
-            # with an empty traceback are skipped — the reference reads
-            # uninitialized ref_p/read_p there (src/gassembler.c:1927,
-            # non-oracle UB)
-            for i in range(B):
-                if stats[i * 6] > 0:
-                    _print_read_trace(i, reads[i], stats[i * 6:i * 6 + 6],
-                                      params)
-        if hit_cap.value:
-            sys.stderr.write(
-                "align_reads_to_reference: maximum number of aligned reads "
-                "(%u) achieved\n" % MAX_ALIGNED_READS)
-        a_reads = [reads[keep_idx[i]] for i in range(kept)]
-        return a_reads, (rows[:kept].copy() if kept
-                         else np.zeros((0, n), np.int32))
+    from genometester4_tpu_torch.utils.native import get_lib
+    lib = get_lib()
+    batch = pad_reads(reads)
+    B, m_cap = batch.shape
+    ref8 = np.ascontiguousarray(ref_codes, np.int8)
+    read_lens = np.array([len(r.nucl) for r in reads], np.int32)
+    cap_rows = min(B, MAX_ALIGNED_READS)
+    rows = np.empty((max(1, cap_rows), n), np.int32)
+    keep_idx = np.empty(max(1, cap_rows), np.int32)
+    hit_cap = ctypes.c_int(0)
+    stats = np.full(B * 6, -2, np.int32)  # -2 = never processed
+    # the filters' limits and the outputs, alike in both native calls
+    shared_args = (params.max_divergent, params.min_align_len, MAX_ENDGAP,
+                   MAX_GAPS, MAX_ALIGNED_READS, rows, keep_idx,
+                   ctypes.byref(hit_cap), stats)
+    if sw_mats is None and not device_sw_enabled():
+        # host: one fused C call per region (fill + traceback + filters
+        # + row build) — the scratch matrix is reused read-to-read so the
+        # DP stays L2-resident
+        kept = lib.fgx_sw_align_region8(ref8, n, batch, B, m_cap, read_lens,
+                                        *shared_args)
+    else:
+        if sw_mats is None:
+            from genometester4_tpu_torch.ops import swalign_cuda
+            sw_mats = swalign_cuda.sw_matrices_batch_device(
+                ref8, batch, device=device)
+        score, sx, sy = _strided_mats(sw_mats, B, n, m_cap)
+        trace.count("align.native", B)
+        kept = lib.gt4_sw_align_mats(
+            ref8, n, batch, B, m_cap, read_lens, score.ctypes.data,
+            sx.ctypes.data, sy.ctypes.data, sx.strides[0], sx.strides[1],
+            *shared_args)
+    if kept < 0:
+        raise MemoryError("sw align scratch allocation failed")
+    if params.debug > 1:
+        # post-hoc in read order == the reference's in-loop order
+        # (nothing else writes stderr during the align loop); reads
+        # with an empty traceback are skipped — the reference reads
+        # uninitialized ref_p/read_p there (src/gassembler.c:1927,
+        # non-oracle UB)
+        for i in range(B):
+            if stats[i * 6] > 0:
+                _print_read_trace(i, reads[i], stats[i * 6:i * 6 + 6],
+                                  params)
+    if hit_cap.value:
+        sys.stderr.write(
+            "align_reads_to_reference: maximum number of aligned reads "
+            "(%u) achieved\n" % MAX_ALIGNED_READS)
+    a_reads = [reads[i] for i in keep_idx[:kept].tolist()]
+    return a_reads, (rows[:kept].copy() if kept
+                     else np.zeros((0, n), np.int32))
+
+
+def _strided_mats(sw_mats, B: int, n: int, m: int):
+    """(score int16, sx int8, sy int8) of at least [B, n+1, m+1], checked
+    for what the native call reads: dense columns and one pair of lane
+    and row strides, counted in elements, as views into one padded launch
+    (``swalign_cuda._batch_multi``) and a contiguous fill have them."""
+    score, sx, sy = sw_mats
+    if (score.dtype != np.int16 or sx.dtype != np.int8
+            or sy.dtype != np.int8):
+        raise ValueError("SW matrices must be int16, int8, int8")
+    for x in sw_mats:
+        if x.shape[0] != B or x.shape[1] <= n or x.shape[2] <= m:
+            raise ValueError(f"SW matrices of shape {x.shape} do not cover "
+                             f"{B} reads of {m} against {n}")
+    if not (sx.strides[2] == 1 and sy.strides == sx.strides
+            and score.strides == tuple(2 * s for s in sx.strides)):
+        raise ValueError(f"SW matrices of strides {score.strides}, "
+                         f"{sx.strides}, {sy.strides} do not share one "
+                         f"layout with dense columns")
+    return score, sx, sy
+
+
+def _align_reads_traced(ref_codes, reads: list, params: Params):
+    """-DDD: per-read host fills and tracebacks, so that every read's
+    (a_p, b_p) feeds the alignment dump. (The reference's own in-fill
+    matrix/traceback dumps are DEAD CODE: the smith_waterman_seq debug
+    PARAMETER is hardwired 0 at the align call, src/gassembler.c:1925,
+    2275,2314.)"""
+    n = len(ref_codes)
     a_rows = []
     a_reads = []
     for i, r in enumerate(reads):
-        if use_slow:
-            # -DDD needs per-read (a_p, b_p) for print_alignment, which
-            # the fused native kernel does not export; a per-read host
-            # fill keeps this diagnostic path simple. (The reference's
-            # own in-fill matrix/traceback dumps are DEAD CODE: the
-            # smith_waterman_seq debug PARAMETER is hardwired 0 at the
-            # align call, src/gassembler.c:1925,2275,2314.)
-            sc1, sx1, sy1 = swalign.sw_matrices_batch(
-                ref_codes.astype(np.int8), r.nucl[None, :])
-            a_p, b_p = swalign.sw_traceback(sc1[0], sx1[0], sy1[0],
-                                            len(r.nucl))
-        else:
-            a_p, b_p = swalign.sw_traceback(score[i], sx[i], sy[i],
-                                            len(r.nucl))
+        sc1, sx1, sy1 = swalign.sw_matrices_batch(
+            ref_codes.astype(np.int8), r.nucl[None, :])
+        a_p, b_p = swalign.sw_traceback(sc1[0], sx1[0], sy1[0],
+                                        len(r.nucl))
         if len(a_p) == 0:
             # zero-length alignment: min_align_len rejects it (the
             # reference reads uninitialized ref_p/read_p here —
@@ -761,14 +789,12 @@ def align_reads(ref_codes: np.ndarray, reads: list, params: Params,
         n_div, n_gaps, s_gap, e_gap, gaps_total = count_divergent(
             ref_codes, r.nucl, a_p, b_p)
         st = (len(a_p), n_div, n_gaps, gaps_total, s_gap, e_gap)
-        if params.debug > 1:
-            _trace_stats_line(i, st)
-            if params.debug > 2:
-                # src/gassembler.c:1930-1935: between the stats line
-                # and the filter reasons
-                sys.stderr.write(">%u/%u\n" % (i, len(a_reads)))
-                _print_alignment(a_p, b_p, ref_codes, r.nucl)
-            _trace_reason(i, r, st, params)
+        _trace_stats_line(i, st)
+        # src/gassembler.c:1930-1935: between the stats line and the
+        # filter reasons
+        sys.stderr.write(">%u/%u\n" % (i, len(a_reads)))
+        _print_alignment(a_p, b_p, ref_codes, r.nucl)
+        _trace_reason(i, r, st, params)
         if n_div > params.max_divergent:
             continue
         if len(a_p) < params.min_align_len:

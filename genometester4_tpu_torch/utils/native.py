@@ -1,12 +1,13 @@
 """The host C library (``native/fastgt_exact.c`` + ``native/listkernel.c``
-+ the port's own ``csrc/slabparse.c``): build, load and the ctypes
-signatures the port calls.
++ the port's own ``csrc/slabparse.c`` and ``csrc/swtrace.c``): build, load
+and the ctypes signatures the port calls.
 
 The port's copy of ``genometester4_tpu/native_build.py`` and of the parts
 of ``genometester4_tpu/models/fastgt_native.py`` its host code reaches:
 the FASTA/FASTQ slab parsers and the one-call FASTQ frame and decode
 (``io.fasta``), the SW fill and traceback
-(``ops.swalign``), gassembler's fused host alignment, gapped alignment,
+(``ops.swalign``), gassembler's fused host alignment, its alignment from
+filled matrices (``gt4_sw_align_mats``), gapped alignment,
 grouping and calling (``pipelines.gassemble``), gmer_counter's text
 database parser, count formatter and host counting route
 (``formats.gmerdb``, ``pipelines.gmercount``), and the glibc ``rand()``
@@ -42,13 +43,15 @@ SRC_FASTGT = os.path.join(NATIVE_DIR, "fastgt_exact.c")
 SRC_LIST = os.path.join(NATIVE_DIR, "listkernel.c")
 SRC_SLAB = os.path.join(REPO_DIR, "genometester4_tpu_torch", "csrc",
                         "slabparse.c")
+SRC_TRACE = os.path.join(REPO_DIR, "genometester4_tpu_torch", "csrc",
+                         "swtrace.c")
 BUILD_DIR = os.path.join(REPO_DIR, "genometester4_tpu_torch", "_build")
 
 # plain x86-64 codegen for fastgt_exact.c (-O2, no FMA contraction to
 # diverge from the reference's default-flag build); listkernel.c is
 # integer-only, so x86-64-v3 cannot change a result bit, with plain
-# codegen as the fallback where cc rejects the flag; slabparse.c, integer
-# only too, takes listkernel.c's flags
+# codegen as the fallback where cc rejects the flag; slabparse.c and
+# swtrace.c, integer only too, take listkernel.c's flags
 CC_FASTGT = ["cc", "-O2", "-Wall", "-c", "-fPIC", "-fopenmp"]
 CC_LIST = ["cc", "-O3", "-funroll-loops", "-march=x86-64-v3", "-Wall", "-c",
            "-fPIC", "-fopenmp"]
@@ -63,7 +66,7 @@ _raw_lib = None
 
 def library_path() -> str:
     h = hashlib.sha256(repr((CC_FASTGT, CC_LIST, CC_LINK)).encode())
-    for src in (SRC_FASTGT, SRC_LIST, SRC_SLAB):
+    for src in (SRC_FASTGT, SRC_LIST, SRC_SLAB, SRC_TRACE):
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libgt4native_{h.hexdigest()[:16]}.so")
@@ -71,18 +74,19 @@ def library_path() -> str:
 
 def _compile(path: str) -> None:
     stem = f"{path[:-3]}.{os.getpid()}"
-    o1, o2, o3 = (f"{stem}.fastgt.o", f"{stem}.listk.o",
-                  f"{stem}.slab.o")
+    o1, o2, o3, o4 = (f"{stem}.fastgt.o", f"{stem}.listk.o",
+                      f"{stem}.slab.o", f"{stem}.trace.o")
     tmp = f"{stem}.so"
     try:
         subprocess.run([*CC_FASTGT, SRC_FASTGT, "-o", o1], check=True)
-        for src, obj in ((SRC_LIST, o2), (SRC_SLAB, o3)):
+        for src, obj in ((SRC_LIST, o2), (SRC_SLAB, o3), (SRC_TRACE, o4)):
             if subprocess.run([*CC_LIST, src, "-o", obj]).returncode != 0:
                 subprocess.run([*CC_LIST_PLAIN, src, "-o", obj], check=True)
-        subprocess.run([*CC_LINK, o1, o2, o3, "-o", tmp, "-lm"], check=True)
+        subprocess.run([*CC_LINK, o1, o2, o3, o4, "-o", tmp, "-lm"],
+                       check=True)
         os.replace(tmp, path)   # atomic publish
     finally:
-        for p in (o1, o2, o3, tmp):
+        for p in (o1, o2, o3, o4, tmp):
             if os.path.exists(p):
                 os.remove(p)
 
@@ -147,6 +151,13 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_long, i32p, i32p, ctypes.POINTER(ctypes.c_int),
             i32p]                         # stats (int[B*6], may be None)
+        lib.gt4_sw_align_mats.restype = ctypes.c_long
+        lib.gt4_sw_align_mats.argtypes = [
+            i8p, ctypes.c_int, i8p, ctypes.c_long, ctypes.c_int, i32p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # score, sx, sy
+            ctypes.c_long, ctypes.c_long,       # lane and row strides
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_long, i32p, i32p, ctypes.POINTER(ctypes.c_int), i32p]
         lib.fgx_gapped_alignment.restype = ctypes.c_long
         lib.fgx_gapped_alignment.argtypes = [
             i8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i16p,
