@@ -2,9 +2,11 @@
  *
  * gt4_fastq_frame_decode takes the bytes of a slab (the previous slab's
  * carry followed by the new read) and writes the 2-bit codes of every
- * whole 4-line group in it, with one 255 sentinel after each record, the
- * code offset of each record's first base and the byte offset of each
- * record's name.  It returns the bytes it consumed: the end of the last
+ * whole 4-line group in it, with one 255 sentinel after each record, and
+ * per record the code offset of its first base, the byte offsets of its
+ * name and of its header line's end (a '\r' before the '\n' kept, as the
+ * name's bytes keep it) and its sequence line's raw length ('\r'
+ * included).  It returns the bytes it consumed: the end of the last
  * whole group, so the caller keeps the rest as its carry and never looks
  * for a newline itself.
  *
@@ -98,7 +100,8 @@ static void count_piece (const unsigned char *data, long n, int at_eof,
 
 static void decode_piece (const unsigned char *data, long n, int at_eof,
                           long last_line, piece_t *pc, unsigned char *codes,
-                          long *rec_starts, long *name_pos)
+                          long *rec_starts, long *name_pos, long *name_end,
+                          long *seq_len)
 {
   long i = pc->start, g = pc->line0, c = pc->code0;
   long bases = 0, ncnt = 0;
@@ -109,9 +112,11 @@ static void decode_piece (const unsigned char *data, long n, int at_eof,
     if (!is_line) break;
     if ((g & 3) == 0) {
       name_pos[g >> 2] = i + 1;               /* past '@' */
+      name_end[g >> 2] = e;
     } else if ((g & 3) == 1) {
       long j, le = stripped (data, i, e);
       rec_starts[g >> 2] = c;
+      seq_len[g >> 2] = e - i;
       for (j = i; j < le; j++) {
         unsigned char b = data[j];
         codes[c++] = code_of[b];
@@ -136,7 +141,7 @@ typedef struct {
   piece_t *pcs;
   long np, first, stride;
   unsigned char *codes;
-  long *rec_starts, *name_pos;
+  long *rec_starts, *name_pos, *name_end, *seq_len;
 } share_t;
 
 static void *run_share (void *arg)
@@ -148,7 +153,8 @@ static void *run_share (void *arg)
       count_piece (sh->data, sh->n, sh->at_eof, &sh->pcs[j]);
     else
       decode_piece (sh->data, sh->n, sh->at_eof, sh->last_line, &sh->pcs[j],
-                    sh->codes, sh->rec_starts, sh->name_pos);
+                    sh->codes, sh->rec_starts, sh->name_pos, sh->name_end,
+                    sh->seq_len);
   }
   return NULL;
 }
@@ -190,14 +196,15 @@ static int cpu_threads (void)
 /* data[0..n): the slab; at_eof: no byte follows it; piece: bytes per
  * piece (0 picks by size and thread count; a positive value is for the
  * tests, which set every seam).  codes has room for n + 1 bytes;
- * rec_starts and name_pos for rec_cap records.  out: [0] codes written,
+ * rec_starts, name_pos, name_end and seq_len for rec_cap records.  out: [0] codes written,
  * [1] records, [2] total bases, [3] N/n bytes among them.  Returns the
  * bytes consumed, -1 when the records exceed rec_cap (out[1] then holds
  * how many there are and nothing is written) or -2 when memory for the
  * pieces is short. */
 long gt4_fastq_frame_decode (const unsigned char *data, long n, int at_eof,
                              long piece, unsigned char *codes,
-                             long *rec_starts, long *name_pos, long rec_cap,
+                             long *rec_starts, long *name_pos,
+                             long *name_end, long *seq_len, long rec_cap,
                              long *out)
 {
   long np, j, lines = 0, code = 0, nrec, consumed = 0;
@@ -243,6 +250,8 @@ long gt4_fastq_frame_decode (const unsigned char *data, long n, int at_eof,
   job.codes = codes;
   job.rec_starts = rec_starts;
   job.name_pos = name_pos;
+  job.name_end = name_end;
+  job.seq_len = seq_len;
   job.pass = 1;
   run_pass (&job, threads);
 

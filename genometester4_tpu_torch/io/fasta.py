@@ -1,9 +1,9 @@
 """FASTA/FASTQ ingestion: the whole-file parse (``load_file``) and the
-streaming slab parsers (the port's copy of ``load_file``,
+streaming slab readers (the port's copy of ``load_file``,
 ``iter_code_slabs``, ``iter_slabs_indexed`` and what they call,
-``genometester4_tpu/io/fasta.py``; ``iter_code_slabs`` reads a regular
-file in place and frames and decodes FASTQ in one native call, with the
-same slabs).
+``genometester4_tpu/io/fasta.py``). Both readers run one slab loop
+(``_slab_loop``), which reads a regular file in place and frames and
+decodes FASTQ in one native call, with the JAX package's slabs.
 
 Replaces the reference's byte-at-a-time state machine parser
 (src/fasta.c:127-288) with a fully vectorized numpy parse: the whole
@@ -41,6 +41,7 @@ _NL = ord("\n")
 _CR = ord("\r")
 _GT = ord(">")
 _AT = ord("@")
+_SEP = np.full(1, 255, np.uint8)  # separates windows at a record's end
 
 
 def open_source(path: str) -> bytes:
@@ -247,12 +248,16 @@ class SlabMeta:
     prefix_len: int = 0  # leading codes repeated from the previous slab
                          # (overlap carry) — slice them off for per-byte
                          # statistics over new content
-    # FASTQ slabs only (records never span slabs there): per-record
-    # start offsets within this slab's codes array and ABSOLUTE byte
-    # offsets of each record's name in the (decompressed) stream —
-    # everything gmer_counter's read-index mode needs to stream
-    rec_starts: object = None   # int64[n_records] | None
-    name_pos: object = None     # int64[n_records] | None
+    # FASTQ slabs only (records never span slabs there), int64[n_records]
+    # each: the start offset of each record within this slab's codes
+    # array; the ABSOLUTE byte offsets in the (decompressed) stream of its
+    # name and of its header line's end ('\r' kept, as parse_fastq's name
+    # spans); its sequence line's raw byte length ('\r' included, as
+    # parse_fastq's _seq_raw_lengths) — what the read index needs
+    rec_starts: object = None
+    name_pos: object = None
+    name_end: object = None
+    seq_len: object = None
 
 
 def _iter_raw_slabs(path: str, slab_bytes: int):
@@ -304,64 +309,26 @@ def _iter_raw_slabs(path: str, slab_bytes: int):
                     yield b
 
 
-def _parse_fasta_slab(head: bytes, continuing: bool):
+def _parse_fasta_slab(head, continuing: bool):
     """Parse a newline-terminated FASTA fragment whose leading lines may
-    continue a record opened in a previous slab.
+    continue a record opened in a previous slab, with the native byte-scan
+    (``fgx_parse_fasta_slab``, native/listkernel.c).
 
-    Returns (codes, n_new_records, count_n, total_bases, open_at_end)
-    where ``codes`` has a 255 sentinel between records but NONE after the
-    final record when it may continue into the next slab.
-
-    Runs through the native byte-scan (native/listkernel.c) when the
-    library is available — ~6x the numpy vectorized parse — with the
-    numpy path kept as the behavioral twin and fallback (differential
-    test: tests/test_fasta.py)."""
-    try:
-        import ctypes
-
-        from genometester4_tpu_torch.utils.native import get_lib
-        lib = get_lib()
-        data = np.frombuffer(head, dtype=np.uint8)
-        codes = np.empty(len(data) + 1, np.uint8)
-        nh = ctypes.c_long(0)
-        tb = ctypes.c_long(0)
-        cn = ctypes.c_long(0)
-        m = lib.fgx_parse_fasta_slab(data, len(data), int(continuing),
-                                     codes, ctypes.byref(nh),
-                                     ctypes.byref(tb), ctypes.byref(cn))
-        if m < 0:
-            raise ValueError("no FASTA records found (no '>' lines)")
-        return codes[:m], int(nh.value), int(cn.value), int(tb.value), True
-    except (OSError, ImportError):
-        pass
-    return _parse_fasta_slab_np(head, continuing)
-
-
-def _parse_fasta_slab_np(head: bytes, continuing: bool):
-    """Numpy twin of fgx_parse_fasta_slab (fallback + differential
-    oracle)."""
+    Returns (codes, n_new_records, count_n, total_bases) where ``codes``
+    has a 255 sentinel between records but NONE after the final record,
+    which may continue into the next slab."""
+    from genometester4_tpu_torch.utils.native import get_lib
     data = np.frombuffer(head, dtype=np.uint8)
-    starts, ends = _line_index(data)
-    if len(starts) == 0:
-        return (np.empty(0, np.uint8), 0, 0, 0, continuing)
-    ends = _strip_cr(data, ends)
-    is_header = data[starts] == _GT
-    n_headers = int(is_header.sum())
-    rec_of_line = np.cumsum(is_header) - 1
-    if continuing:
-        rec_of_line = rec_of_line + 1  # slot 0 = the carried-over record
-    elif n_headers == 0:
+    codes = np.empty(len(data) + 1, np.uint8)
+    nh = ctypes.c_long(0)
+    tb = ctypes.c_long(0)
+    cn = ctypes.c_long(0)
+    m = get_lib().fgx_parse_fasta_slab(data, len(data), int(continuing),
+                                       codes, ctypes.byref(nh),
+                                       ctypes.byref(tb), ctypes.byref(cn))
+    if m < 0:
         raise ValueError("no FASTA records found (no '>' lines)")
-    n_recs = n_headers + (1 if continuing else 0)
-    seq_mask = (~is_header) & (rec_of_line >= 0)
-    out, _, rec_lengths, count_n = _scatter_records(
-        data, starts[seq_mask], ends[seq_mask], rec_of_line[seq_mask],
-        n_recs)
-    # _scatter_records appends a sentinel after every record incl. the
-    # last; the last record stays open across the seam, so drop it
-    if len(out) and out[-1] == 255:
-        out = out[:-1]
-    return out, n_headers, count_n, int(rec_lengths.sum()), True
+    return codes[:m], int(nh.value), int(cn.value), int(tb.value)
 
 
 def _fastq_frame_decode(data, at_eof: bool, abs_off: int, piece: int = 0):
@@ -384,21 +351,21 @@ def _fastq_frame_decode(data, at_eof: bool, abs_off: int, piece: int = 0):
     out = np.zeros(4, np.int64)
     cap = n // 32 + 4
     while True:
-        rec_starts = np.empty(cap, np.int64)
-        name_pos = np.empty(cap, np.int64)
+        recs = np.empty((4, cap), np.int64)
         used = lib.gt4_fastq_frame_decode(raw, n, int(at_eof), piece, codes,
-                                          rec_starts, name_pos, cap, out)
+                                          *recs, cap, out)
         if used != -1:
             break
         cap = int(out[1])
     if used < 0:
         raise MemoryError("FASTQ slab parse: no memory for its pieces")
     nrec = int(out[1])
-    name_pos = name_pos[:nrec]
+    rec_starts, name_pos, name_end, seq_len = recs[:, :nrec]
     name_pos += abs_off
+    name_end += abs_off
     return used, codes[:out[0]], SlabMeta(
-        nrec, int(out[2]), int(out[3]), rec_starts=rec_starts[:nrec],
-        name_pos=name_pos)
+        nrec, int(out[2]), int(out[3]), rec_starts=rec_starts,
+        name_pos=name_pos, name_end=name_end, seq_len=seq_len)
 
 
 class _BufferPool:
@@ -542,15 +509,23 @@ def _open_slabs(path: str, slab_bytes: int):
     return _StreamSlabs(_iter_raw_slabs(path, slab_bytes))
 
 
-def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
-    """Stream a FASTA/FASTQ file as ready-to-count code slabs.
+def _slab_loop(path: str, k: int, slab_bytes: int, whole_lines: bool = False):
+    """The one slab loop behind ``iter_code_slabs`` and
+    ``iter_slabs_indexed``.
 
-    Yields (codes, SlabMeta) where ``codes`` is a uint8 2-bit code array
-    (255 = invalid/separator). Each slab is prefixed with the previous
-    slab's final k-1 codes (plus a 255 separator when the record ended
-    exactly at the seam), so running window extraction per slab loses no
-    k-mer and counts none twice. Concatenating all slabs minus prefixes
-    reproduces load_file(path).codes exactly.
+    Yields (kind, codes, SlabMeta, head, offset, seam) a slab: ``kind`` is
+    how the slab was decoded ("fasta": whole lines, "fastq": whole 4-line
+    groups, "line": part of a FASTA line longer than a slab), ``codes``
+    and ``meta`` are the slab's own codes and counts, with no prefix from
+    the slab before (each reader joins its own), ``head`` is a view of the
+    raw bytes decoded, valid until the next ``next()``, ``offset`` is its
+    first byte's offset in the (decompressed) stream, and ``seam`` says
+    that the FASTA record open at the seam ended exactly there. The last
+    item is ("end", None, None, the format found ("fasta", "fastq", or
+    None for a file of blanks), bytes read, False). With ``whole_lines`` a
+    FASTA slab holding no newline raises ``ValueError``, as the JAX
+    package's ``iter_slabs_indexed`` does, instead of being read on or
+    decoded as a "line".
 
     A regular file is parsed in place: its slabs are read into one reused
     buffer (``_FileSlabs``), and a FASTQ slab is framed and decoded by one
@@ -560,23 +535,20 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
 
     Each slab's work is the span "parse", split into "read" (the open,
     each read or inflate), "frame" (the carry's move or join, the format
-    sniff and the FASTA cut at the last whole line) and "decode" (the
-    decode and the prefix concat; for FASTQ the one native call, which
-    also finds the cut). The counters ``parse.slabs`` and
+    sniff and the FASTA cut at the last whole line) and "decode" (for
+    FASTQ the one native call, which also finds the cut). The counters ``parse.slabs`` and
     ``parse.inplace`` count the slabs read and those read in place.
     """
     fmt = None          # 'fasta' | 'fastq'
-    tail_codes = np.empty(0, np.uint8)  # last k-1 emitted codes
     open_record = False  # a FASTA record spans the seam
     abs_off = 0         # stream byte offset of src.buf[src.lo]
     src = None
 
     def frame():
         """What is ready to decode at the front of the carry and the new
-        slab, src.buf[lo:hi], and how ("fastq": the native call finds its
-        whole 4-line groups, "fasta": whole lines, "line": part of a line
-        longer than a slab), or None; what is not taken stays in the
-        carry."""
+        slab, src.buf[lo:hi], as (kind, view), or None; what is not taken
+        stays in the carry (for "fastq" the native call takes its whole
+        4-line groups)."""
         nonlocal fmt, abs_off
         buf, lo, hi = src.buf, src.lo, src.hi
         if fmt is None:
@@ -595,11 +567,13 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
                 raise ValueError(
                     f"unrecognized sequence format (first byte {buf[i]!r})")
         if fmt == "fastq":
-            return "fastq", None
+            return "fastq", memoryview(buf)[lo:hi]
         cut = buf.rfind(b"\n", lo, hi) + 1
         if cut:
             src.lo = cut
             return "fasta", memoryview(buf)[lo:cut]
+        if whole_lines:
+            raise ValueError("iter_slabs_indexed: line longer than a slab")
         # no newline in a whole slab: a monster single-line sequence
         # — consume it directly unless it could be a header (headers
         # are assumed to fit one slab)
@@ -611,37 +585,28 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
         src.lo = end
         return "line", memoryview(buf)[lo:end]
 
-    def decode(kind: str, head):
-        nonlocal tail_codes, open_record, abs_off
+    def decode(kind: str, head, at_eof: bool = False):
+        nonlocal open_record, abs_off
+        offset = abs_off
         if kind == "fastq":
-            used, codes, meta = _fastq_frame_decode(
-                memoryview(src.buf)[src.lo:src.hi], False, abs_off)
+            used, codes, meta = _fastq_frame_decode(head, at_eof, offset)
             src.lo += used
             abs_off += used
-            return (codes, meta) if used else None
+            return (kind, codes, meta, head[:used], offset, False) \
+                if used else None
+        seam = open_record and head[0] == _GT
         if kind == "line":
             seq = np.frombuffer(head, np.uint8)
             count_n = int(((seq == ord("N")) | (seq == ord("n"))).sum())
             codes = NUCL_CODES[seq]
-            prefix = tail_codes
-            meta = SlabMeta(0, len(codes), count_n, prefix_len=len(prefix))
+            meta = SlabMeta(0, len(codes), count_n)
         else:
-            codes, n_new, count_n, bases, _ = _parse_fasta_slab(
-                head, open_record)
-            prefix = tail_codes
-            if open_record and len(head) and head[0] == _GT \
-                    and len(tail_codes):
-                # record ended exactly at the seam: separate windows
-                prefix = np.concatenate([tail_codes,
-                                         np.full(1, 255, np.uint8)])
-            meta = SlabMeta(n_new, bases, count_n, prefix_len=len(prefix))
+            codes, n_new, count_n, bases = _parse_fasta_slab(head,
+                                                             open_record)
+            meta = SlabMeta(n_new, bases, count_n)
             open_record = open_record or n_new > 0
-        out = np.concatenate([prefix, codes])
         abs_off += len(head)
-        if k > 1:
-            tail_codes = codes[-(k - 1):] if len(codes) >= k - 1 \
-                else np.concatenate([tail_codes, codes])[-(k - 1):]
-        return out, meta
+        return kind, codes, meta, head, offset, seam
 
     try:
         while True:
@@ -667,21 +632,46 @@ def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
                 yield item
         # EOF: flush whatever remains as final (possibly unterminated) lines
         carry = bytes(src.buf[src.lo:src.hi])
-        if not carry.strip():
-            return
-        with trace.span("parse"), trace.span("decode"):
-            if fmt == "fasta":
-                item = decode("fasta", carry)
-            elif carry.count(b"\n") >= 3:   # a whole FASTQ record at least
-                _, codes, meta = _fastq_frame_decode(carry, True, abs_off)
-                if not meta.n_records:
-                    raise ValueError("no complete FASTQ records")
-                item = codes, meta
-        if item is not None:
+        size = abs_off + len(carry)
+        if carry.strip() and (fmt == "fasta" or carry.count(b"\n") >= 3):
+            with trace.span("parse"), trace.span("decode"):
+                item = decode(fmt, carry, at_eof=True)
+            if item is None:   # a whole FASTQ record at least
+                raise ValueError("no complete FASTQ records")
             yield item
+        yield "end", None, None, fmt, size, False
     finally:
         if src is not None:
             src.close()
+
+
+def iter_code_slabs(path: str, k: int, slab_bytes: int = 1 << 28):
+    """Stream a FASTA/FASTQ file as ready-to-count code slabs.
+
+    Yields (codes, SlabMeta) where ``codes`` is a uint8 2-bit code array
+    (255 = invalid/separator). Each slab is prefixed with the previous
+    slab's final k-1 codes (plus a 255 separator when the record ended
+    exactly at the seam), so running window extraction per slab loses no
+    k-mer and counts none twice. Concatenating all slabs minus prefixes
+    reproduces load_file(path).codes exactly. The slabs, their spans and
+    counters are ``_slab_loop``'s; the prefix is joined in the span
+    "decode".
+    """
+    tail = np.empty(0, np.uint8)  # the last k-1 codes decoded
+    for kind, codes, meta, _, _, seam in _slab_loop(path, k, slab_bytes):
+        if kind == "fastq":
+            yield codes, meta
+        elif kind != "end":
+            with trace.span("parse"), trace.span("decode"):
+                prefix = tail
+                if seam and len(tail):
+                    prefix = np.concatenate([tail, _SEP])
+                meta.prefix_len = len(prefix)
+                out = np.concatenate([prefix, codes])
+                if k > 1:
+                    tail = codes[-(k - 1):] if len(codes) >= k - 1 \
+                        else np.concatenate([tail, codes])[-(k - 1):]
+            yield out, meta
 
 
 # ---------------------------------------------------------------------------
@@ -718,6 +708,9 @@ class IdxSlabMeta:
 class IdxStreamEnd:
     stream_size: int          # total (decompressed) byte length
     n_records: int
+    # not a field: the format the reader found, "fasta", "fastq", or None
+    # for a file of blanks
+    fmt = None
 
 
 def _fasta_slab_meta(data: np.ndarray, continuing: bool):
@@ -745,58 +738,40 @@ def _fasta_slab_meta(data: np.ndarray, continuing: bool):
     return n_headers, name_spans, rec_lengths
 
 
-def _fastq_idx_meta(parsed: ParsedSequences, next_rec: int,
-                    abs_off: int) -> IdxSlabMeta:
-    return IdxSlabMeta(
-        seg_starts=parsed.rec_starts.astype(np.int64),
-        seg_rec=np.arange(next_rec, next_rec + parsed.n_records,
-                          dtype=np.int64),
-        seg_lpos0=np.zeros(parsed.n_records, np.int64),
-        name_spans=(parsed._name_spans.astype(np.int64) + abs_off),
-        rec_base=next_rec, n_started=parsed.n_records,
-        total_bases=parsed.total_bases, count_n=parsed.count_n,
-        prefix_len=0, rec_lengths=parsed._seq_raw_lengths.copy())
-
-
 def iter_slabs_indexed(path: str, k: int, slab_bytes: int = 1 << 28):
     """Stream FASTA/FASTQ as code slabs with record/position maps.
 
     Yields (codes, IdxSlabMeta) per slab and finally (None,
-    IdxStreamEnd). Concatenating the slabs minus their prefixes
-    reproduces the whole-file parse's codes exactly (same guarantee as
-    iter_code_slabs; the k-1 overlap carry means no window is lost or
-    double-counted at seams)."""
-    fmt = None
-    carry = b""
+    IdxStreamEnd), field for field the JAX package's. Concatenating the
+    slabs minus their prefixes reproduces the whole-file parse's codes
+    exactly (same guarantee as iter_code_slabs; the k-1 overlap carry
+    means no window is lost or double-counted at seams). The slabs are
+    ``_slab_loop``'s, with its spans and counters: a FASTQ slab's maps
+    come from its one native call, a FASTA slab's from its raw lines,
+    built and joined to its prefix in the span "decode". The end's
+    ``fmt`` says which format the file held."""
     tail_codes = np.empty(0, np.uint8)
     tail_segs = (np.zeros(1, np.int64), np.full(1, -1, np.int64),
                  np.zeros(1, np.int64))
-    open_record = False
     cur_rec = -1
     cur_lpos = 0
     next_rec = 0
-    abs_off = 0
-    stream_bytes = 0
 
-    def build_fasta_slab(head: bytes):
-        nonlocal tail_codes, tail_segs, open_record, cur_rec, cur_lpos, \
-            next_rec
-        data = np.frombuffer(head, np.uint8)
-        codes_new, n_headers, count_n, bases, _ = _parse_fasta_slab(
-            head, open_record)
+    def build_fasta_slab(new, slab: SlabMeta, head, offset: int,
+                         seam: bool):
+        nonlocal tail_codes, tail_segs, cur_rec, cur_lpos, next_rec
+        n_headers = slab.n_records
+        bases = slab.total_bases
+        open_record = next_rec > 0   # a record is open at the seam
         nh2, name_spans_rel, rec_lengths = _fasta_slab_meta(
-            data, open_record)
+            np.frombuffer(head, np.uint8), open_record)
         if nh2 != n_headers:
             raise ValueError("FASTA slab parsers disagree on the number of "
                              f"records ({n_headers} vs {nh2})")
-        starts_fresh = head[:1] == b">"
-        prefix = tail_codes
-        sep = open_record and starts_fresh and len(tail_codes)
-        if sep:
-            prefix = np.concatenate([tail_codes,
-                                     np.full(1, 255, np.uint8)])
-        codes = np.concatenate([prefix, codes_new])
+        sep = seam and len(tail_codes)
+        prefix = np.concatenate([tail_codes, _SEP]) if sep else tail_codes
         plen = len(prefix)
+        codes = np.concatenate([prefix, new])
         # body segments from the parser's [cont][255][rec0][255]... layout
         seg_s = list(tail_segs[0])
         seg_r = list(tail_segs[1])
@@ -830,9 +805,9 @@ def iter_slabs_indexed(path: str, k: int, slab_bytes: int = 1 << 28):
             seg_starts=np.array(seg_s, np.int64),
             seg_rec=np.array(seg_r, np.int64),
             seg_lpos0=np.array(seg_l, np.int64),
-            name_spans=(name_spans_rel + abs_off),
+            name_spans=(name_spans_rel + offset),
             rec_base=next_rec, n_started=n_headers,
-            total_bases=bases, count_n=count_n, prefix_len=plen)
+            total_bases=bases, count_n=slab.count_n, prefix_len=plen)
         # state updates
         if n_headers:
             cur_rec = next_rec + n_headers - 1
@@ -840,7 +815,6 @@ def iter_slabs_indexed(path: str, k: int, slab_bytes: int = 1 << 28):
         else:
             cur_lpos += bases
         next_rec += n_headers
-        open_record = open_record or n_headers > 0
         # carry tail mapping for the next slab
         t = min(k - 1, len(codes)) if k > 1 else 0
         q0 = len(codes) - t
@@ -860,58 +834,24 @@ def iter_slabs_indexed(path: str, k: int, slab_bytes: int = 1 << 28):
                      np.array([x[2] for x in keep], np.int64))
         return codes, meta
 
-    for raw in _iter_raw_slabs(path, slab_bytes):
-        stream_bytes += len(raw)
-        buf = carry + raw
-        if fmt is None:
-            i = 0
-            while i < len(buf) and buf[i] in (_NL, _CR, ord(" "), ord("\t")):
-                i += 1
-            if i >= len(buf):
-                carry = b""
-                abs_off += len(buf)
-                continue
-            buf = buf[i:]
-            abs_off += i
-            if buf[0] == _GT:
-                fmt = "fasta"
-            elif buf[0] == _AT:
-                fmt = "fastq"
-            else:
-                raise ValueError(
-                    f"unrecognized sequence format (first byte {buf[0]!r})")
-        if fmt == "fasta":
-            cut = buf.rfind(b"\n") + 1
-            if cut == 0:
-                raise ValueError(
-                    "iter_slabs_indexed: line longer than a slab")
-            head, carry = buf[:cut], buf[cut:]
-            codes, meta = build_fasta_slab(head)
-            abs_off += len(head)
-            yield codes, meta
+    for kind, codes, slab, head, offset, seam in _slab_loop(
+            path, k, slab_bytes, whole_lines=True):
+        if kind == "fasta":
+            with trace.span("parse"), trace.span("decode"):
+                item = build_fasta_slab(codes, slab, head, offset, seam)
+            yield item
+        elif kind == "fastq":
+            n = slab.n_records
+            yield codes, IdxSlabMeta(
+                seg_starts=slab.rec_starts,
+                seg_rec=np.arange(next_rec, next_rec + n, dtype=np.int64),
+                seg_lpos0=np.zeros(n, np.int64),
+                name_spans=np.stack([slab.name_pos, slab.name_end], axis=1),
+                rec_base=next_rec, n_started=n,
+                total_bases=slab.total_bases, count_n=slab.count_n,
+                prefix_len=0, rec_lengths=slab.seq_len.copy())
+            next_rec += n
         else:
-            nl = np.flatnonzero(np.frombuffer(buf, np.uint8) == _NL)
-            n_groups = len(nl) // 4
-            if n_groups == 0:
-                carry = buf
-                continue
-            cut = int(nl[4 * n_groups - 1]) + 1
-            head, carry = buf[:cut], buf[cut:]
-            parsed = parse_fastq(head)
-            meta = _fastq_idx_meta(parsed, next_rec, abs_off)
-            next_rec += parsed.n_records
-            abs_off += len(head)
-            yield parsed.codes, meta
-    if carry.strip():
-        if fmt == "fasta":
-            if not carry.endswith(b"\n"):
-                carry += b"\n"
-            codes, meta = build_fasta_slab(carry)
-            yield codes, meta
-        elif fmt == "fastq":
-            if carry.count(b"\n") >= 3:
-                parsed = parse_fastq(carry)
-                meta = _fastq_idx_meta(parsed, next_rec, abs_off)
-                next_rec += parsed.n_records
-                yield parsed.codes, meta
-    yield None, IdxStreamEnd(stream_size=stream_bytes, n_records=next_rec)
+            end = IdxStreamEnd(stream_size=offset, n_records=next_rec)
+            end.fmt = head
+            yield None, end

@@ -1159,9 +1159,6 @@ class Assembler:
         p_len = state["p_len"]
         aligned_ref = state["aligned_ref"]
         na = len(a_reads)
-        nucl_counts = np.zeros((p_len, GAP + 1), np.int64)
-        for j in range(GAP + 1):
-            nucl_counts[:, j] = (ga[:na] == j).sum(axis=0)
 
         tags = np.array([r.tag & r.mask for r in a_reads], np.uint64)
         masks = np.array([r.mask for r in a_reads], np.uint64)

@@ -307,15 +307,7 @@ class DBCounter:
 
     def _add_file(self, path: str, slab_bytes: int):
         if self.build_index:
-            # FASTQ (the KATK read format) streams: records never span
-            # slabs and SlabMeta carries absolute name offsets. FASTA
-            # records CAN span slabs; iter_slabs_indexed carries the
-            # record/position segment maps across seams, so that path
-            # streams too (O(slab) raw bytes).
-            if self._sniff_fastq(path):
-                self._add_file_indexed_stream(path, slab_bytes)
-            else:
-                self._add_file_indexed_stream_fasta(path, slab_bytes)
+            self._add_file_indexed(path, slab_bytes)
             return
         # count mode streams: peak RAM O(slab), matching the reference's
         # block-at-a-time read pipeline (src/gmer_counter.c:713-748)
@@ -330,16 +322,6 @@ class DBCounter:
                 st.n_gc += int(((fresh == 1) | (fresh == 2)).sum())
                 st.n_seq += new_nucl + meta.count_n  # nucleotides + Ns
             self._add_codes(codes)
-
-    @staticmethod
-    def _sniff_fastq(path: str) -> bool:
-        import zlib
-        with open(path, "rb") as f:
-            head = f.read(4096)
-        if head[:2] == b"\x1f\x8b":
-            head = zlib.decompressobj(wbits=31).decompress(head, 256)
-        head = head.lstrip(b" \t\r\n")
-        return head[:1] == b"@"
 
     def _chunk_hits(self, codes: np.ndarray):
         """Index-mode hits of one slab's codes over its chunks: (code,
@@ -361,78 +343,56 @@ class DBCounter:
         return (np.concatenate(c_l), np.concatenate(p_l),
                 np.concatenate(d_l))
 
-    def _add_file_indexed_stream(self, path: str, slab_bytes: int):
-        """Index-mode FASTQ ingestion in bounded memory: one hits table
-        per file assembled from per-slab pieces (positions are
-        record-local, name offsets absolute via SlabMeta). A slab's hits
-        are mapped to their records in the span "index_hits"."""
-        from genometester4_tpu_torch.io.fasta import iter_code_slabs
-
-        k = self.db.wordsize
-        file_idx = len(self.hits)
-        rec_base = 0
-        rec_l, lpos_l, code_l, dir_l, npos_l = [], [], [], [], []
-        for codes, meta in iter_code_slabs(path, k, slab_bytes):
-            if self.collect_stats:
-                st = self.result.stats
-                fresh = codes[meta.prefix_len:]
-                new_nucl = int((fresh < 4).sum())
-                st.n_nucl += new_nucl
-                st.n_gc += int(((fresh == 1) | (fresh == 2)).sum())
-                st.n_seq += new_nucl + meta.count_n
-            hits = self._chunk_hits(codes)
-            if hits is not None:
-                with trace.span("index_hits"):
-                    hcode, gpos, hdir = hits
-                    rec = np.searchsorted(meta.rec_starts, gpos,
-                                          side="right") - 1
-                    rec_l.append(rec + rec_base)
-                    lpos_l.append(gpos - meta.rec_starts[rec])
-                    code_l.append(hcode)
-                    dir_l.append(hdir)
-                    npos_l.append(meta.name_pos[rec])
-            rec_base += meta.n_records
-        self._add_hits(file_idx, code_l, rec_l, lpos_l, dir_l, npos_l)
-
-    def _add_file_indexed_stream_fasta(self, path: str, slab_bytes: int):
-        """Index-mode FASTA ingestion in bounded memory: per-slab
-        record/position maps from iter_slabs_indexed (n_seq is SET to
-        n_nucl + this file's N count, the reference's whole-file
-        behavior)."""
+    def _add_file_indexed(self, path: str, slab_bytes: int):
+        """Index-mode ingestion of one FASTA or FASTQ file in bounded
+        memory: each slab's hits are mapped to (record, position in the
+        record, record name offset) through the record/position maps of
+        ``iter_slabs_indexed`` in the span "index_hits". A hit in a record
+        started in an earlier slab lies in the record open at the seam.
+        ``--stats``' n_seq grows by a FASTQ file's nucleotides and Ns; for
+        FASTA it is SET to n_nucl + this file's N count, the reference's
+        whole-file behavior."""
         from genometester4_tpu_torch.io.fasta import iter_slabs_indexed
 
-        k = self.db.wordsize
         file_idx = len(self.hits)
-        name_starts_l = []
-        rec_l, lpos_l, code_l, dir_l = [], [], [], []
-        file_count_n = 0
-        for codes, meta in iter_slabs_indexed(path, k, slab_bytes):
+        rec_l, lpos_l, code_l, dir_l, npos_l = [], [], [], [], []
+        open_name = np.zeros(1, np.int64)  # name offset of the open record
+        file_nucl = file_count_n = 0
+        for codes, meta in iter_slabs_indexed(path, self.db.wordsize,
+                                              slab_bytes):
             if codes is None:
                 break
-            name_starts_l.append(meta.name_spans[:, 0])
             file_count_n += meta.count_n
             if self.collect_stats:
                 st = self.result.stats
                 fresh = codes[meta.prefix_len:]
-                st.n_nucl += int((fresh < 4).sum())
+                new_nucl = int((fresh < 4).sum())
+                file_nucl += new_nucl
+                st.n_nucl += new_nucl
                 st.n_gc += int(((fresh == 1) | (fresh == 2)).sum())
+            names = np.concatenate([open_name, meta.name_spans[:, 0]])
+            open_name = names[-1:]
             hits = self._chunk_hits(codes)
-            if hits is None or not len(hits[0]):
+            if hits is None:
                 continue
-            hcode, spos, hdir = hits
-            seg = np.searchsorted(meta.seg_starts, spos, side="right") - 1
-            rec_l.append(meta.seg_rec[seg])
-            lpos_l.append(spos - meta.seg_starts[seg] + meta.seg_lpos0[seg])
-            code_l.append(hcode)
-            dir_l.append(hdir)
+            with trace.span("index_hits"):
+                hcode, spos, hdir = hits
+                seg = np.searchsorted(meta.seg_starts, spos,
+                                      side="right") - 1
+                rec = meta.seg_rec[seg]
+                rec_l.append(rec)
+                lpos_l.append(spos - meta.seg_starts[seg]
+                              + meta.seg_lpos0[seg])
+                code_l.append(hcode)
+                dir_l.append(hdir)
+                npos_l.append(names[rec - meta.rec_base + 1])
         if self.collect_stats:
             st = self.result.stats
-            st.n_seq = st.n_nucl + file_count_n
-        name_starts = (np.concatenate(name_starts_l) if name_starts_l
-                       else np.zeros(0, np.int64))
-        rec = (np.concatenate(rec_l) if rec_l else np.empty(0, np.int64))
-        npos = name_starts[rec] if len(rec) else np.empty(0, np.int64)
-        self._add_hits(file_idx, code_l, rec_l, lpos_l, dir_l, [npos])
+            if meta.fmt == "fastq":
+                st.n_seq += file_nucl + file_count_n
+            else:
+                st.n_seq = st.n_nucl + file_count_n
+        self._add_hits(file_idx, code_l, rec_l, lpos_l, dir_l, npos_l)
 
     def _add_hits(self, file_idx, code_l, rec_l, lpos_l, dir_l, npos_l):
         """Decode one file's hits to flat slots, count them, and keep the

@@ -214,7 +214,7 @@ def get_lib() -> ctypes.CDLL:
         lib.gt4_fastq_frame_decode.restype = ctypes.c_long
         lib.gt4_fastq_frame_decode.argtypes = [
             u8p, ctypes.c_long, ctypes.c_int, ctypes.c_long, u8p, i64p,
-            i64p, ctypes.c_long, i64p]
+            i64p, i64p, i64p, ctypes.c_long, i64p]
         # gmer_counter: the text database parser and the count formatter
         lib.fgx_parse_text_db.restype = ctypes.c_long
         lib.fgx_parse_text_db.argtypes = [

@@ -124,6 +124,7 @@ def data(tmp_path_factory):
     (tmp / "reads.fq").write_bytes(fq)
     (tmp / "reads.fq.gz").write_bytes(gzip.compress(fq))
     (tmp / "reads.fa").write_bytes(_fasta(g))
+    (tmp / "truncated.fq").write_bytes(b"@cut\nACGTNNACGT\n")
     return tmp
 
 
@@ -276,6 +277,9 @@ INDEX_CASES = {
     "fasta_tiny_slabs_k32": ("db32.txt", ["reads.fa"], ["--stats"], 257),
     "verbose_two_files_k11": ("db11.txt", ["reads.fq", "reads.fa"],
                               ["--verbose", "-D"], None),
+    "fastq_then_truncated_stats_k25": ("db25.txt",
+                                       ["reads.fq", "truncated.fq"],
+                                       ["--stats"], None),
 }
 
 

@@ -1,9 +1,10 @@
-"""The in-place host parse of ``io.fasta.iter_code_slabs``: the one-call
-FASTQ frame and decode (``csrc/slabparse.c``) against the JAX package's
-native ``fgx_parse_fastq_slab`` and against the JAX package's slab
-stream, with the pieces' seams on every byte, and the reader's pooled
-buffer: its read calls, its ownership and the stream inputs it leaves to
-the old reader."""
+"""The in-place host parse behind ``io.fasta.iter_code_slabs`` and
+``iter_slabs_indexed``: the one-call FASTQ frame and decode
+(``csrc/slabparse.c``) against the JAX package's native
+``fgx_parse_fastq_slab`` and ``parse_fastq`` and against the JAX
+package's slab streams, with the pieces' seams on every byte, and the
+reader's pooled buffer: its read calls, its ownership and the stream
+inputs it leaves to the old reader."""
 
 import ctypes
 import gzip
@@ -122,6 +123,12 @@ def test_fastq_frame_decode_equals_the_jax_package(tmp_path, name, slab):
     for at_eof in (False, True):
         cut = _whole_groups(data, at_eof)
         codes, rs, npos, tb, cn = _fgx(data if at_eof else data[:cut])
+        if len(rs):
+            parsed = jax_fasta.parse_fastq(data if at_eof else data[:cut])
+            name_end = parsed._name_spans[:, 1]
+            seq_len = parsed._seq_raw_lengths
+        else:
+            name_end = seq_len = np.zeros(0, np.int64)
         for piece in PIECES:
             used, gc, meta = port_fasta._fastq_frame_decode(
                 data, at_eof, 1000, piece)
@@ -130,6 +137,8 @@ def test_fastq_frame_decode_equals_the_jax_package(tmp_path, name, slab):
             assert np.array_equal(gc, codes), what
             assert np.array_equal(meta.rec_starts, rs), what
             assert np.array_equal(meta.name_pos, npos + 1000), what
+            assert np.array_equal(meta.name_end, name_end + 1000), what
+            assert np.array_equal(meta.seq_len, seq_len), what
             assert (meta.n_records, meta.total_bases, meta.count_n) == \
                 (len(rs), tb, cn), what
     path = tmp_path / f"{name}.fq"
@@ -175,6 +184,70 @@ def _fasta(rng, n_bytes):
     lines = [seq[i:i + 70] for i in range(0, len(seq), 70)]
     return b">a one\n" + b"\n".join(lines[:len(lines) // 2]) + b"\n>b\n" \
         + b"\n".join(lines[len(lines) // 2:]) + b"\n"
+
+
+def _fasta_inputs(slab):
+    """FASTA files for the indexed reader; "seam" puts a record's end on
+    the first seam and a slab of two bases (fewer than k - 1) behind it."""
+    rng = np.random.default_rng(19)
+    s = min(slab, 1 << 14)
+    seq = rng.choice(MESSY[:13], 6000).tobytes()
+    wrapped = b"".join(b">r%d desc\n" % i + b"\n".join(
+        seq[j:j + 60] for j in range(i * 500, i * 500 + 80 * i + 30, 60))
+        + b"\n" for i in range(8))
+    return {
+        "wrapped": wrapped,
+        "seam": (b">a\n" + seq[:s - 4] + b"\n" + b">" + b"n" * (s - 5)
+                 + b"\nAC\n>c\n" + seq[:200] + b"\n>d\n" + seq[200:300]),
+        "crlf_empty_blank": (b" \n\r\n\t" + wrapped.replace(b"\n", b"\r\n")
+                             + b">e\r\n>f\r\n" + seq[:90] + b"\r\n>g\r\n"),
+        "long_line": b">a\n" + seq + seq + b"\n>b\n" + seq[:100],
+    }
+
+
+def _collect_indexed(fn, path, slab):
+    out, err = [], None
+    try:
+        for codes, meta in fn(str(path), 11, slab):
+            out.append((codes, meta))
+    except ValueError as e:
+        err = str(e)
+    return out, err
+
+
+@pytest.mark.parametrize("slab", SLABS)
+@pytest.mark.parametrize("name", list(_fasta_inputs(64)) + list(_inputs(64)))
+def test_indexed_reader_equals_the_jax_package(tmp_path, name, slab):
+    """``iter_slabs_indexed`` over the slab loop gives the JAX package's
+    codes, every ``IdxSlabMeta`` field, its ``IdxStreamEnd`` and its
+    errors (a FASTA line longer than a slab), plain and gzip."""
+    inputs = {**_fasta_inputs(slab), **_inputs(slab)}
+    data = inputs[name]
+    for path, raw in ((tmp_path / name, data),
+                      (tmp_path / f"{name}.gz", gzip.compress(data))):
+        path.write_bytes(raw)
+        got, got_err = _collect_indexed(port_fasta.iter_slabs_indexed,
+                                        path, slab)
+        want, want_err = _collect_indexed(jax_fasta.iter_slabs_indexed,
+                                          path, slab)
+        what = (path.name, slab)
+        assert got_err == want_err, what
+        if name == "long_line" and slab <= 4096 and raw is data:
+            assert want_err == "iter_slabs_indexed: line longer than a slab"
+        assert len(got) == len(want), what
+        for (gc, gm), (wc, wm) in zip(got, want):
+            assert type(gm).__name__ == type(wm).__name__, what
+            if wc is None:
+                assert gc is None, what
+            else:
+                assert np.array_equal(gc, wc), what
+            for f, w in vars(wm).items():
+                g = getattr(gm, f)
+                if isinstance(w, np.ndarray):
+                    assert isinstance(g, np.ndarray) and g.dtype == w.dtype \
+                        and np.array_equal(g, w), (what, f)
+                else:
+                    assert g == w, (what, f)
 
 
 class _CountingFile(io.FileIO):

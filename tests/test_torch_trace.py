@@ -470,6 +470,26 @@ def test_slab_parser_equals_the_jax_package(tmp_path, slab):
                 assert by_id[r.parent].name == "parse", (name, r)
 
 
+def test_indexed_reader_records_the_slab_loops_spans(tmp_path):
+    """``iter_slabs_indexed`` over a regular FASTQ file records the slab
+    loop's spans, read, frame and decode under parse, and reads every slab
+    in place."""
+    path = _slab_inputs(tmp_path, np.random.default_rng(5))["fastq"]
+    trace.reset()
+    with trace.recording():
+        got = list(port_fasta.iter_slabs_indexed(str(path), 11, 1000))
+    assert len(got) > 2 and got[-1][0] is None
+    rows = trace.rows()
+    by_id = {r.id: r for r in rows}
+    names = {r.name for r in rows}
+    assert {"parse", "read", "frame", "decode"} <= names
+    for r in rows:
+        if r.name in ("read", "frame", "decode"):
+            assert by_id[r.parent].name == "parse", r
+    assert trace.total("parse.slabs") > 2
+    assert trace.total("parse.inplace") == trace.total("parse.slabs")
+
+
 def test_exchange_is_a_wait_span_with_its_bytes():
     def send(n):
         trace.count("exchange.bytes", n)
