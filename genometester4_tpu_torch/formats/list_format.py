@@ -149,28 +149,38 @@ def read_list(path: str | os.PathLike, mmap: bool = True):
     return hdr, recs["word"], recs["count"]
 
 
-def raw_record_view(words: np.ndarray) -> np.ndarray | None:
-    """Recover the raw 12-byte record buffer behind a read_list(mmap)
-    word view, or None when the array is not such a view. Native
-    kernels take the raw stream directly — no strided gather copy."""
+def raw_record_view(words: np.ndarray,
+                    counts: np.ndarray | None = None) -> np.ndarray | None:
+    """The raw 12-byte records behind a word view of a record array (a
+    read_list(mmap) column, a shard copied back as records), as a uint8
+    slice of exactly ``12 * len(words)`` bytes; None when ``words`` is no
+    such view, or when ``counts`` is given and is not the same records'
+    count field, 8 bytes after each word. Native kernels and the writer
+    take the raw stream directly: no strided gather copy."""
     w = np.asarray(words)
-    if w.strides != (RECORD_SIZE,) or w.dtype.itemsize != 8:
+    if w.ndim != 1 or w.strides != (RECORD_SIZE,) or w.dtype.itemsize != 8:
         return None
+    if counts is not None:
+        c = np.asarray(counts)
+        if (c.shape != w.shape or c.strides != (RECORD_SIZE,)
+                or c.dtype.itemsize != 4
+                or c.ctypes.data != w.ctypes.data + 8):
+            return None
     # walk to the deepest ndarray base holding the raw bytes; the view
     # chain's shape varies across numpy versions, so the reliable check
-    # is POINTER equality: the words array's data must start exactly at
-    # the buffer's first byte and the buffer must cover every record
+    # is POINTER arithmetic: the words must lie inside the buffer, on the
+    # record grid it holds from their first byte on
     b = getattr(w, "base", None)
     deepest = None
     while isinstance(b, np.ndarray):
         deepest = b
         b = getattr(b, "base", None)
-    if deepest is None:
+    if deepest is None or not deepest.flags.c_contiguous:
         return None
     raw = deepest.reshape(-1).view(np.uint8)
-    if (raw.ctypes.data == w.ctypes.data
-            and raw.nbytes >= RECORD_SIZE * len(w)):
-        return raw
+    off = w.ctypes.data - raw.ctypes.data
+    if 0 <= off and off + RECORD_SIZE * len(w) <= raw.nbytes:
+        return raw[off: off + RECORD_SIZE * len(w)]
     return None
 
 
@@ -182,6 +192,17 @@ def pack_records(words: np.ndarray, counts: np.ndarray) -> np.ndarray:
     return recs.view(np.uint8)
 
 
+def record_bytes(words: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The 12-byte record stream of a (words, counts) pair: the raw bytes
+    behind them where they are the fields of one record array (no copy),
+    else the pair packed."""
+    raw = raw_record_view(words, counts)
+    if raw is not None:
+        return raw
+    return pack_records(np.asarray(words, np.uint64),
+                        np.asarray(counts, np.uint32))
+
+
 def write_list(path: str | os.PathLike, word_length: int, words: np.ndarray,
                counts: np.ndarray, atomic: bool = True) -> ListHeader:
     """Write a sorted (words, counts) pair as a .list file.
@@ -190,14 +211,14 @@ def write_list(path: str | os.PathLike, word_length: int, words: np.ndarray,
     tmp-file + rename atomic publish convention of the reference
     (src/glistmaker.c:305-353).
     """
-    words = np.ascontiguousarray(words, dtype=np.uint64)
-    counts = np.ascontiguousarray(counts, dtype=np.uint32)
-    hdr = ListHeader(word_length, n_words=len(words),
+    counts = np.asarray(counts, dtype=np.uint32)
+    recs = record_bytes(words, counts)
+    hdr = ListHeader(word_length, n_words=len(counts),
                      total_count=int(counts.sum(dtype=np.uint64)))
     tmp = f"{path}.tmp.{os.getpid()}" if atomic else path
     with open(tmp, "wb") as f:
         f.write(hdr.pack())
-        pack_records(words, counts).tofile(f)
+        recs.tofile(f)
     if atomic:
         os.replace(tmp, path)
     return hdr

@@ -50,11 +50,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from genometester4_tpu_torch.formats.list_format import (RECORD_DTYPE,
+                                                         record_bytes)
 from genometester4_tpu_torch.ops.encode import SIGN, keys_from_pair
 from genometester4_tpu_torch.ops.merge_runs import merge_sorted_runs
 from genometester4_tpu_torch.ops.sortcount import count_unique
 from genometester4_tpu_torch.parallel import multihost
-from genometester4_tpu_torch.pipelines.listmaker import (count_chunk,
+from genometester4_tpu_torch.pipelines.listmaker import (HostShard,
+                                                         count_chunk,
                                                          merge_sorted_shards,
                                                          to_host, upload)
 from genometester4_tpu_torch.utils import trace
@@ -437,15 +440,19 @@ def count_kmers_sharded(codes: np.ndarray, k: int, mesh: Mesh,
     """Materializing wrapper over iter_count_kmers_sharded: the span
     "count", with each step ("step") and its column merges ("merge")
     inside, the merges of the steps' columns ("merge") and their
-    concatenation ("gather")."""
+    concatenation ("gather"): one ``HostShard`` of the columns' records,
+    with the sum of their totals where each has one."""
     with trace.span("count"):
         out = list(iter_count_kmers_sharded(codes, k, mesh, chunk_bases,
                                             cap_factor, adapt_state))
         if not out:
             return np.empty(0, np.uint64), np.empty(0, np.uint32)
-        with trace.span("gather"):
-            return (np.concatenate([w for w, _ in out]),
-                    np.concatenate([c for _, c in out]))
+        with trace.span("gather"):   # the columns' records, end to end
+            recs = np.concatenate([record_bytes(w, c) for w, c in out])
+            recs = recs.view(RECORD_DTYPE)
+            totals = [getattr(part, "total", None) for part in out]
+            return HostShard(recs["word"], recs["count"],
+                             None if None in totals else sum(totals))
 
 
 def sharded_pair_op(words1, counts1, words2, counts2, mesh: Mesh, op: str,

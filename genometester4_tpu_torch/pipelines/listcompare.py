@@ -36,6 +36,7 @@ imported only when a device route runs.
 
 from __future__ import annotations
 
+import bisect
 import math
 import os
 import sys
@@ -44,9 +45,8 @@ import numpy as np
 
 from genometester4_tpu_torch.formats.list_format import (GT4_LIST_CODE,
                                                          ListWriter,
-                                                         pack_records,
-                                                         raw_record_view,
                                                          read_list,
+                                                         record_bytes,
                                                          write_list)
 from genometester4_tpu_torch.utils.rand48 import Rand48
 
@@ -148,13 +148,20 @@ def _host_route() -> bool:
 def word_rank(words, values) -> np.ndarray:
     """``np.searchsorted(words, values)`` (side left) for a sorted u64
     ``words``. numpy copies a strided or unaligned array whole before it
-    searches, and a ``.list`` mmap's word column is both (12-byte
-    records); such a column is searched here in place, by a vectorized
-    binary search of ~log2(len(words)) gathers."""
+    searches, and the word field of 12-byte records (a ``.list`` mmap, a
+    shard copied back as records) is both; such a field is searched here
+    in place: up to 128 values (the bounds of ``rank_bounds``' halvings)
+    one bisection a value, more by a vectorized binary search of
+    ~log2(len(words)) gathers, whose fixed cost the bisections undercut
+    below a few hundred values."""
     words = np.asarray(words)
     values = np.asarray(values, np.uint64)
     if words.flags.c_contiguous and words.flags.aligned:
         return np.searchsorted(words, values)
+    if values.size <= 128:
+        return np.array([bisect.bisect_left(words, v)
+                         for v in values.ravel()],
+                        np.int64).reshape(values.shape)
     lo = np.zeros(values.shape, np.int64)
     hi = np.full(values.shape, len(words), np.int64)
     while True:
@@ -326,16 +333,6 @@ def _host_apply_multi_op(w_cat, c_cat, s_cat, n_lists, op, rule, cutoff,
     return uw[inc], freq[inc].astype(np.uint32)
 
 
-def _rec_view(w, c):
-    """The raw 12-byte record stream of a source for the native kernels:
-    a .list mmap's own buffer (no gather copy), else packed records (an
-    index's words and counts)."""
-    raw = raw_record_view(w)
-    if raw is not None:
-        return raw
-    return pack_records(np.asarray(w, np.uint64), np.asarray(c, np.uint32))
-
-
 def _to_device(words, counts, dev):
     """Host u64 words and u32 counts -> (int64 keys, int64 counts) on
     ``dev``."""
@@ -367,8 +364,8 @@ def _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
     disable_numpy_thp()
     lib = get_lib()
     rint = RULE_NUMBERS[RULES[rule]]
-    r1 = _rec_view(w1, c1)
-    r2 = _rec_view(w2, c2)
+    r1 = record_bytes(w1, c1)
+    r2 = record_bytes(w2, c2)
 
     n_threads = int(os.environ.get("OMP_NUM_THREADS",
                                    os.cpu_count() or 1))
@@ -674,7 +671,7 @@ def _host_compare_multi(sink, data, op, rule, cutoff, count_override, debug):
     ptrs = (ctypes.c_void_p * n_lists)()
     lens = (ctypes.c_long * n_lists)()
     for i, (h, w, c) in enumerate(data):
-        raw = _rec_view(w, c)
+        raw = record_bytes(w, c)
         bufs_keepalive.append(raw)
         ptrs[i] = raw.ctypes.data
         lens[i] = len(w)
@@ -928,11 +925,7 @@ def make_subset(list_path: str, method: str, size: int, outputname: str,
         if method != "rand" and size > h.n_words:
             raise ValueError("subset size bigger than number of unique kmers")
         lib = get_lib()
-        raw = raw_record_view(words)
-        if raw is None:
-            raw = pack_records(np.asarray(words, np.uint64),
-                               np.asarray(counts, np.uint32))
-            raw = np.ascontiguousarray(raw.view(np.uint8).reshape(-1))
+        raw = record_bytes(words, counts)
         out_buf = np.empty(max(12, 12 * h.n_words), np.uint8)
         tot = ctypes.c_ulonglong(0)
         # in = the header's total (inst->sum_counts IS header->total for

@@ -8,8 +8,9 @@ Port of the device branch of ``genometester4_tpu/pipelines/listmaker.py``
   -> extract + canonicalize        kernel A (ops.extract_cuda)
   -> sort int64 keys               torch.sort
   -> unique keys and counts        kernel B (ops.runmarks_cuda), one sync
+  -> 12-byte records, one copy     to_host (packed on the device)
   -> host rank-bucketed merge      weighted count_unique per bucket
-  -> ListWriter                    formats.list_format
+  -> ListWriter.append_records     formats.list_format
 
 With a mesh (``make_list(mesh=...)``, or by default with more than one
 CUDA card, as in JAX), each slab is counted by the mesh route of
@@ -41,14 +42,16 @@ import tempfile
 import numpy as np
 import torch
 
-from genometester4_tpu_torch.formats.list_format import (ListHeader,
+from genometester4_tpu_torch.formats.list_format import (RECORD_DTYPE,
+                                                         RECORD_SIZE,
+                                                         ListHeader,
                                                          ListWriter,
                                                          read_list,
+                                                         record_bytes,
                                                          write_list)
 from genometester4_tpu_torch.io.fasta import iter_code_slabs
 from genometester4_tpu_torch.ops.encode import (SIGN, canonical,
-                                                keys_from_u64, u64_from_keys,
-                                                word_mask)
+                                                keys_from_u64, word_mask)
 from genometester4_tpu_torch.ops.kmers import extract_kmers_best
 from genometester4_tpu_torch.ops.sortcount import count_unique, sort_compact
 from genometester4_tpu_torch.parallel import multihost
@@ -81,16 +84,42 @@ def pad_pow2_chunk(chunk: np.ndarray, cap_limit: int) -> np.ndarray:
     return chunk
 
 
-def to_host(words: torch.Tensor, counts: torch.Tensor):
-    """Unique int64 keys and their counts below 2^32 (any device) -> host
-    (words u64, counts u32): the span "copyback", and from a card the
-    counter "copy.d2h_bytes", 12 bytes an entry."""
+class HostShard(tuple):
+    """A host shard ``(words u64, counts u32)``: the word and count fields
+    of one array of finished ``.list`` records (``RECORD_DTYPE``), with
+    ``total``, the sum of its counts taken where the records were packed
+    (None where it was not)."""
+
+    def __new__(cls, words, counts, total=None):
+        shard = super().__new__(cls, (words, counts))
+        shard.total = total
+        return shard
+
+
+def to_host(words: torch.Tensor, counts: torch.Tensor) -> HostShard:
+    """Unique int64 keys and their counts (any device) -> a host shard of
+    12-byte records, packed where they are (bit 63 flipped back, the
+    counts mod 2^32) behind the 8-byte total of those counts, and copied
+    back in one copy: the span "copyback", and from a card the counter
+    "copy.d2h_bytes", 12 bytes a record."""
+    n = words.numel()
     with trace.span("copyback", wait=True):
+        c32 = counts.to(torch.int32)   # a count's low 32 bits
+        # the u32 total: a negative int32 stands for itself + 2^32
+        total = c32.sum(dtype=torch.int64) + (c32 < 0).sum() * (1 << 32)
+        buf = torch.empty(8 + RECORD_SIZE * n, dtype=torch.uint8,
+                          device=words.device)
+        buf[:8] = total.reshape(1).view(torch.uint8)
+        recs = buf[8:].view(n, RECORD_SIZE)   # little-endian, as the file
+        recs[:, :8] = words.contiguous().view(torch.uint8).view(n, 8)
+        recs[:, 7] ^= 0x80                    # bit 63: key -> word
+        recs[:, 8:] = c32.view(torch.uint8).view(n, 4)
         if words.device.type != "cpu":
-            trace.count("copy.d2h_bytes", 12 * words.numel())
-        # the int32 cast keeps the counts' bits and halves their copy
-        return (u64_from_keys(words),
-                counts.to(torch.int32).cpu().numpy().view(np.uint32))
+            trace.count("copy.d2h_bytes", RECORD_SIZE * n)
+        host = buf.cpu().numpy()
+    recs = host[8:].view(RECORD_DTYPE)
+    return HostShard(recs["word"], recs["count"],
+                     int(host[:8].view(np.int64)[0]))
 
 
 def upload(*arrays: torch.Tensor, device) -> list:
@@ -151,25 +180,32 @@ def merge_sorted_shards(shards, target_bucket: int = DEFAULT_MERGE_BUCKET,
     (``pipelines.listcompare.bucket_cuts``, host searches), so a bucket
     holds at most ``target_bucket`` + one entry per shard whatever the
     words' range; each bucket is merged with the weighted ``count_unique``
-    on the device, and the sorted buckets are yielded in ascending order.
-    Counts add with u32 wrap-around like the reference's counters.
+    on the device, and the sorted buckets are yielded in ascending order:
+    a merged bucket as the ``HostShard`` that ``to_host`` gives, a bucket
+    of one source as that shard when it is whole, else as a slice of its
+    fields. A lone shard is yielded as it is, uncut. Counts add with u32
+    wrap-around like the reference's counters.
     """
     dev = resolve_device(device)
     shards = [s for s in shards if len(s[0])]
-    if not shards:
+    if len(shards) < 2:   # one shard is sorted and unique: no buckets
+        yield from shards
         return
     with trace.span("merge"), trace.span("cuts"):
         cuts = bucket_cuts([w for w, _ in shards], target_bucket)
     for b in range(len(cuts[0]) - 1):
-        parts = [(w[cut[b]:cut[b + 1]], c[cut[b]:cut[b + 1]])
-                 for (w, c), cut in zip(shards, cuts)
+        parts = [(s, cut[b], cut[b + 1]) for s, cut in zip(shards, cuts)
                  if cut[b + 1] > cut[b]]
         if not parts:
             continue
         if len(parts) == 1:
-            # single source: already sorted and unique
-            yield np.asarray(parts[0][0]), np.asarray(parts[0][1])
+            # single source: already sorted and unique; a whole shard
+            # keeps its total
+            s, lo, hi = parts[0]
+            w, c = s
+            yield s if hi - lo == len(w) else (w[lo:hi], c[lo:hi])
             continue
+        parts = [(w[lo:hi], c[lo:hi]) for (w, c), lo, hi in parts]
         with trace.span("merge"):
             with trace.span("gather"):
                 keys = keys_from_u64(np.concatenate([w for w, _ in parts]))
@@ -264,16 +300,17 @@ def make_list(input_files, word_length: int, output_path: str,
     def spill(shards):
         nonlocal ram_bytes
         out = []
-        for w, c in shards:
+        for shard in shards:
+            w, c = shard
             if isinstance(w, np.memmap) or len(w) == 0:
-                out.append((w, c))
+                out.append(shard)   # spilled already: keeps its total
                 continue
             fd, tmp = tempfile.mkstemp(suffix=".list", dir=tmpdir)
             os.close(fd)
             write_list(tmp, word_length, w, c)
             tmp_files.append(tmp)
-            _, mw, mc = read_list(tmp, mmap=True)
-            out.append((mw, mc))
+            hdr, mw, mc = read_list(tmp, mmap=True)
+            out.append(HostShard(mw, mc, hdr.total_count))
         ram_bytes = 0
         return out
 
@@ -289,10 +326,11 @@ def make_list(input_files, word_length: int, output_path: str,
                     else:
                         counted = count_chunks(codes, word_length,
                                                chunk_bases, canonical, dev)
-                    for w, c in counted:
+                    for shard in counted:
+                        w, c = shard
                         if not len(w):
                             continue
-                        shards.append((w, c))
+                        shards.append(shard)
                         ram_bytes += w.nbytes + c.nbytes
                         if ram_bytes > spill_bytes:
                             with trace.span("spill"):
@@ -320,19 +358,32 @@ def _merge_and_write(shards, output_path: str, word_length: int,
                      min_count: int, max_count: int, dev) -> ListHeader:
     """The merge of the counted shards, cut to [min_count, max_count],
     into a ``ListWriter``; its opening and appends are the span "write"
-    (its close, a header's rewrite, is the job's own time)."""
+    (its close, a header's rewrite, is the job's own time). Each part goes
+    to ``append_records`` as its 12-byte records (``record_bytes``: the
+    records copied back where the part is their two fields, the counter
+    "list.records_whole", else packed), with the total it carries or, for
+    a slice or a cut, one sum over its count field."""
     cut = min_count > 1 or max_count != 0xFFFFFFFF
     with trace.span("write"):
         w = ListWriter(output_path, word_length)
     with w:
-        for words, counts in merge_sorted_shards(shards, device=dev):
-            if cut:
+        for part in merge_sorted_shards(shards, device=dev):
+            words, counts = part
+            raw = record_bytes(words, counts)
+            whole = np.may_share_memory(raw, words)   # not packed here
+            total = getattr(part, "total", None)
+            if cut:   # one copy of the kept records
                 keep = counts >= np.uint32(min_count)
                 if max_count != 0xFFFFFFFF:
                     keep &= counts <= np.uint32(max_count)
-                words, counts = words[keep], counts[keep]
+                recs = raw.view(RECORD_DTYPE)[keep]
+                raw, counts, total = recs.view(np.uint8), recs["count"], None
+            if total is None:
+                total = int(counts.sum(dtype=np.uint64))
             with trace.span("write"):
-                w.append(words, counts)
+                if whole:
+                    trace.count("list.records_whole", len(counts))
+                w.append_records(raw, len(counts), total)
     return ListHeader(word_length, w.n_words, w.total_count)
 
 

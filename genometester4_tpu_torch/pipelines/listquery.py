@@ -678,13 +678,8 @@ def print_full_map(lst: ListQuery, chunk: int = 1 << 20):
         if ob is not None:
             ob.flush()
         return
-    from genometester4_tpu_torch.formats.list_format import (
-        pack_records, raw_record_view)
-    raw = raw_record_view(lst.words)
-    if raw is None:
-        raw = pack_records(np.ascontiguousarray(lst.words, np.uint64),
-                           np.ascontiguousarray(lst.counts, np.uint32))
-        raw = np.ascontiguousarray(raw.view(np.uint8).reshape(-1))
+    from genometester4_tpu_torch.formats.list_format import record_bytes
+    raw = record_bytes(lst.words, lst.counts)
     from genometester4_tpu_torch.utils.native import get_lib
     lib = get_lib()
     n = len(lst.words)

@@ -211,3 +211,19 @@ def test_word_rank_on_a_list_mmap(tmp_path, rng):
                                   np.searchsorted(w, q))
     np.testing.assert_array_equal(
         port_lc.word_rank(np.empty(0, np.uint64)[::1], q[:3]), [0, 0, 0])
+
+
+@pytest.mark.parametrize("n_values", [1, 64, 128, 129])
+def test_word_rank_bounds_on_a_list_mmap(tmp_path, rng, n_values):
+    """Both searches of a strided word column, on either side of 128
+    values (bisections below, the vectorized search above), agree with
+    np.searchsorted, the bounds 0 and 2^64 - 1 included."""
+    from genometester4_tpu_torch.formats.list_format import read_list
+    w = np.unique(rng.integers(0, U64_MAX, 20_000, dtype=np.uint64))
+    write_list(str(tmp_path / "x.list"), 32, w, np.ones(len(w), np.uint32))
+    _, mw, _ = read_list(str(tmp_path / "x.list"))
+    q = np.sort(rng.integers(0, U64_MAX, n_values, dtype=np.uint64))
+    q[0] = 0
+    q[-1] = U64_MAX if n_values > 1 else w[17]
+    np.testing.assert_array_equal(port_lc.word_rank(mw, q),
+                                  np.searchsorted(w, q))

@@ -178,15 +178,39 @@ def test_make_list_cuda_equals_cpu(cuda, tmp_path):
                    + seq[30_000:].tobytes() + b"\n")
     for k in (16, 25, 32):
         before = (trace.total("launch.extract"),
-                  trace.total("launch.run_encode"))
-        make_list([str(fa)], k, str(tmp_path / "g.list"), chunk_bases=1 << 14,
-                  device="cuda")
+                  trace.total("launch.run_encode"),
+                  trace.total("list.records_whole"))
+        hdr = make_list([str(fa)], k, str(tmp_path / "g.list"),
+                        chunk_bases=1 << 14, device="cuda")
         make_list([str(fa)], k, str(tmp_path / "c.list"), chunk_bases=1 << 14,
                   device="cpu")
         assert ((tmp_path / "g.list").read_bytes()
                 == (tmp_path / "c.list").read_bytes())
         assert trace.total("launch.extract") > before[0]
         assert trace.total("launch.run_encode") > before[1]
+        assert (trace.total("list.records_whole") - before[2]
+                == 2 * hdr.n_words)
+
+
+def test_to_host_cuda_equals_cpu(cuda):
+    """The pack step on the card: the CPU's records and total, copied back
+    at 12 bytes a record ("copy.d2h_bytes")."""
+    from genometester4_tpu_torch.formats.list_format import raw_record_view
+    from genometester4_tpu_torch.pipelines.listmaker import to_host
+    rng = np.random.default_rng(6)
+    for n in (1, 3, 100_003):
+        keys = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                             dtype=np.int64))
+        counts = torch.from_numpy(rng.integers(0, 1 << 33, n,
+                                               dtype=np.int64))
+        counts[0] = 0xFFFFFFFF
+        want = to_host(keys, counts)
+        d2h = trace.total("copy.d2h_bytes")
+        got = to_host(keys.cuda(), counts.cuda())
+        assert trace.total("copy.d2h_bytes") - d2h == 12 * n
+        assert (raw_record_view(*got).tobytes()
+                == raw_record_view(*want).tobytes())
+        assert got.total == want.total
 
 
 def test_wrappers_reject_bad_tensors(cuda):

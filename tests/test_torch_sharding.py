@@ -253,8 +253,9 @@ def test_make_mesh_shapes_equal_jax():
 @pytest.mark.parametrize("k", [14, 25])
 def test_make_list_mesh_byte_identical(tmp_path, monkeypatch, rng, k):
     """make_list(mesh=...) writes the single-chip route's bytes in both
-    merge modes, with cutoffs too; kernel E's wrapper never runs on the
-    CPU."""
+    merge modes, with cutoffs too, every record handed to the writer as
+    a slice of the records the columns copied back; kernel E's wrapper
+    never runs on the CPU."""
     fa = tmp_path / "in.fa"
     fa.write_text(random_fasta(rng, 4, 3000, 9000, n_prob=0.01))
     launches = trace.total("launch.merge_runs")
@@ -265,9 +266,13 @@ def test_make_list_mesh_byte_identical(tmp_path, monkeypatch, rng, k):
         assert len(want) > 48 or kw
         for mode in MODES:
             monkeypatch.setenv("GT4_TPU_MESH_MERGE", mode)
-            port_lm.make_list([str(fa)], k, str(tmp_path / "mesh.list"),
-                              device="cpu", mesh=_cpu_mesh(8, 2), **kw)
+            whole = trace.total("list.records_whole")
+            hdr = port_lm.make_list([str(fa)], k,
+                                    str(tmp_path / "mesh.list"),
+                                    device="cpu", mesh=_cpu_mesh(8, 2), **kw)
             assert (tmp_path / "mesh.list").read_bytes() == want
+            assert (trace.total("list.records_whole") - whole
+                    == hdr.n_words)
     assert trace.total("launch.merge_runs") == launches
     with pytest.raises(ValueError, match="canonical"):
         port_lm.make_list([str(fa)], k, str(tmp_path / "x.list"),

@@ -19,6 +19,7 @@ from torch.profiler import profile
 
 from genometester4_tpu.io import fasta as jax_fasta
 from genometester4_tpu_torch.formats import gmerdb as port_gmerdb
+from genometester4_tpu_torch.formats.list_format import read_list_header
 from genometester4_tpu_torch.io import fasta as port_fasta
 from genometester4_tpu_torch.parallel import multihost
 from genometester4_tpu_torch.pipelines import gmercount as port_gc
@@ -324,6 +325,11 @@ def test_program_spans_under_the_profiler(tmp_path, monkeypatch, program,
                                                for r in rows)
     assert (counted.get("mesh.steps", 0) > 0) == bool(mesh_slots)
     assert "copy.d2h_bytes" not in counted   # no card: nothing copied back
+    if root_name == "list":   # every record handed to the writer whole
+        hdr = read_list_header(path.parent / "g.list")
+        assert counted["list.records_whole"] == hdr.n_words > 0
+    else:
+        assert "list.records_whole" not in counted
     assert sum(r.name == "parse" for r in rows) >= 2
     assert sum(r.name == "count" for r in rows) >= 2
     if root_name == "list":
