@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from genometester4_tpu_torch.ops.sortcount import sort_compact
+from genometester4_tpu_torch.utils import trace
 
 RULE_DEFAULT = "default"
 RULE_ADD = "add"
@@ -50,11 +51,23 @@ _U32 = 0xFFFFFFFF
 
 def _runs(keys: torch.Tensor):
     """Sorted keys -> (the first slot of every run bool [n], each slot's
-    run id int64 [n], the number of runs)."""
+    run id int64 [n], the number of runs). Reading the number back is the
+    span "sync"."""
     head = torch.ones_like(keys, dtype=torch.bool)
     head[1:] = keys[1:] != keys[:-1]
     run = torch.cumsum(head, 0) - 1
-    return head, run, int(run[-1]) + 1 if keys.numel() else 0
+    if not keys.numel():
+        return head, run, 0
+    with trace.span("sync", wait=True):
+        return head, run, int(run[-1]) + 1
+
+
+def _compact(inc, keys, counts):
+    """``sort_compact``, whose host read of the kept count is the span
+    "sync": (kept keys, their counts)."""
+    with trace.span("sync", wait=True):
+        _, keys, counts = sort_compact(inc, keys, counts)
+    return keys, counts
 
 
 def pair_align(keys1: torch.Tensor, c1: torch.Tensor, keys2: torch.Tensor,
@@ -128,8 +141,7 @@ def apply_pair_op(ukeys, f1, f2, op: str, rule: str = RULE_DEFAULT,
         inc = present2 & ge2 & ~ge1 & (freq != 0)
     else:
         raise ValueError(f"unknown op {op}")
-    _, keys, counts = sort_compact(inc, ukeys, freq)
-    return keys, counts
+    return _compact(inc, ukeys, freq)
 
 
 def apply_multi_op(keys: torch.Tensor, counts: torch.Tensor, n_lists: int,
@@ -161,5 +173,4 @@ def apply_multi_op(keys: torch.Tensor, counts: torch.Tensor, n_lists: int,
     if op == "intrsec":
         n_src = empty.index_add(0, run, torch.ones_like(run))
         inc &= n_src == n_lists
-    _, okeys, ocounts = sort_compact(inc, skeys[head], freq)
-    return okeys, ocounts
+    return _compact(inc, skeys[head], freq)

@@ -28,6 +28,17 @@ semantics). Routes of ``compare_pair`` and ``compare_multi``:
   the host route, as in JAX, and every process returns after the files
   are published.
 
+``compare_pair`` and ``compare_multi`` record their spans and counters
+(``utils.trace``): one job root "compare" a call, over "read" (an
+input's mmap) and "write" (the sinks' opening, a part's appends, the
+closes); on the device route also "cuts" (the placement,
+``bucket_cuts``) and a part's "upload" (w), "ops" (its "sync" (w) where
+the host reads a size) and "copyback" (w), which ``_run_parts`` runs
+under the root on its pool's threads too; counters "compare.parts",
+"compare.words_in" (the records of both inputs the parts take),
+"compare.words_out" (records handed to the sinks, every op) and, from a
+card, "copy.d2h_bytes".
+
 The JAX package's placement cost model (``auto``) is not ported.
 ``compare_pair_mm`` (``-mm``) and
 ``make_subset`` (``-ss``) are host code in JAX too and stay so. torch is
@@ -48,6 +59,7 @@ from genometester4_tpu_torch.formats.list_format import (GT4_LIST_CODE,
                                                          read_list,
                                                          record_bytes,
                                                          write_list)
+from genometester4_tpu_torch.utils import trace
 from genometester4_tpu_torch.utils.rand48 import Rand48
 
 
@@ -103,7 +115,9 @@ def _emit_progress_ticks(prev: int, new: int) -> None:
 
 
 class _OpSink:
-    """Accumulates one op's output: either a ListWriter or count-only."""
+    """Accumulates one op's output: either a ListWriter or count-only.
+    An append counts its records in "compare.words_out"; the callers'
+    span "write" holds the sinks' opening, appends and closes."""
 
     def __init__(self, op, path, word_length, count_only, debug=0):
         self.op = op
@@ -114,6 +128,7 @@ class _OpSink:
         self.writer = None if count_only else ListWriter(path, word_length)
 
     def append(self, words, counts):
+        trace.count("compare.words_out", len(words))
         prev = self.n_words
         self.n_words += len(words)
         self.total_count += int(np.asarray(counts, np.uint64).sum())
@@ -344,13 +359,31 @@ def _to_device(words, counts, dev):
             .to(dev))
 
 
+def _upload(pairs, dev, join=False):
+    """``_to_device`` of each (words, counts) of one part, or with
+    ``join`` of their concatenation: the span "upload", which counts the
+    part in "compare.parts" and its records in "compare.words_in"."""
+    with trace.span("upload", wait=True):
+        trace.count("compare.parts")
+        trace.count("compare.words_in", sum(len(w) for w, _ in pairs))
+        if join:
+            pairs = [(np.concatenate([w for w, _ in pairs]),
+                      np.concatenate([c for _, c in pairs]))]
+        return [t for w, c in pairs for t in _to_device(w, c, dev)]
+
+
 def _to_host(keys, counts):
-    """(int64 keys, int64 u32 counts) on any device -> host (u64, u32)."""
+    """(int64 keys, int64 u32 counts) on any device -> host (u64, u32):
+    the span "copyback", and from a card the counter "copy.d2h_bytes",
+    12 bytes a record."""
     import torch
 
     from genometester4_tpu_torch.ops.encode import u64_from_keys
-    return (u64_from_keys(keys),
-            counts.to(torch.int32).cpu().numpy().view(np.uint32))
+    with trace.span("copyback", wait=True):
+        if keys.device.type != "cpu":
+            trace.count("copy.d2h_bytes", 12 * keys.numel())
+        return (u64_from_keys(keys),
+                counts.to(torch.int32).cpu().numpy().view(np.uint32))
 
 
 def _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
@@ -475,15 +508,17 @@ def _placement(word_lists, device, mesh, target):
     other processes are None), else of JAX's rule (more than one CUDA
     card and GT4_TPU_MESH != 0, ``make_mesh()`` over all of them), else
     ``device`` alone."""
-    if mesh is None:
-        from genometester4_tpu_torch.pipelines.listmaker import _default_mesh
-        from genometester4_tpu_torch.utils.device import resolve_device
-        dev = resolve_device(device)
-        mesh = _default_mesh(dev, True)
-        slots = [dev] if mesh is None else mesh.slots
-    else:
-        slots = mesh.slots
-    return bucket_cuts(word_lists, target, len(slots)), slots
+    with trace.span("cuts"):
+        if mesh is None:
+            from genometester4_tpu_torch.pipelines.listmaker import \
+                _default_mesh
+            from genometester4_tpu_torch.utils.device import resolve_device
+            dev = resolve_device(device)
+            mesh = _default_mesh(dev, True)
+            slots = [dev] if mesh is None else mesh.slots
+        else:
+            slots = mesh.slots
+        return bucket_cuts(word_lists, target, len(slots)), slots
 
 
 def _run_parts(run, n_parts, slots, host=None):
@@ -491,12 +526,16 @@ def _run_parts(run, n_parts, slots, host=None):
     in part order; ``run`` returns a part's outputs (on a group's mesh,
     device tensors or None), ``host`` copies them back (None: as they
     are). One window of len(slots) parts at a time: its parts of distinct
-    devices run side by side, a thread a device (torch lets go of the GIL
+    devices run side by side, the first device's on the calling thread
+    and each other device's on a pool thread (torch lets go of the GIL
     while a card works), those of one device one after another, so a
-    device holds one part at once. On a group's mesh (the slots of other
-    processes are None) a process runs its own slots' parts; the others
-    send theirs to process 0, which yields every part in the same order,
-    None for one that holds nothing, and is the only one to yield."""
+    device holds one part at once; one device hands nothing to another
+    thread. On a group's mesh (the slots of other processes are None) a
+    process runs its own slots' parts; the others send theirs to process
+    0, which yields every part in the same order, None for one that holds
+    nothing, and is the only one to yield. The pool threads' spans are
+    children of the span open where the first part is asked for
+    (``trace.under``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from genometester4_tpu_torch.parallel import multihost
@@ -510,18 +549,24 @@ def _run_parts(run, n_parts, slots, host=None):
         import torch.distributed as dist
         send, per = dist.get_rank() != 0, width // dist.get_world_size()
 
+    parent = trace.current()
+
     def on(dev, window):
         out = []
-        for p in window:
-            if slots[p % width] == dev:
-                got = run(p, dev)
-                out.append((p, got if send or got is None else host(got)))
+        with trace.under(parent):
+            for p in window:
+                if slots[p % width] == dev:
+                    got = run(p, dev)
+                    out.append((p, got if send or got is None
+                                else host(got)))
         return out
-    with ThreadPoolExecutor(len(devices)) as pool:
+    with ThreadPoolExecutor(max(len(devices) - 1, 1)) as pool:
         for lo in range(0, n_parts, width):
             window = range(lo, min(lo + width, n_parts))
-            done = dict(kv for f in [pool.submit(on, d, window)
-                                     for d in devices] for kv in f.result())
+            others = [pool.submit(on, d, window) for d in devices[1:]]
+            done = dict(on(devices[0], window))
+            for f in others:
+                done.update(f.result())
             for p in window:
                 if p not in done:       # another process's part
                     if not send:
@@ -550,11 +595,13 @@ def pair_parts(w1, c1, w2, c2, ops, rule="default", cutoff=1,
         a1, z1, a2, z2 = cuts1[p], cuts1[p + 1], cuts2[p], cuts2[p + 1]
         if z1 - a1 + z2 - a2 == 0:
             return None
-        aligned = setops.pair_align(*_to_device(w1[a1:z1], c1[a1:z1], dev),
-                                    *_to_device(w2[a2:z2], c2[a2:z2], dev))
-        return [t for op in ops for t in setops.apply_pair_op(
-            *aligned, op=op, rule=rule, cutoff=cutoff,
-            count_override=count_override, subtract=subtract)]
+        tensors = _upload([(w1[a1:z1], c1[a1:z1]), (w2[a2:z2], c2[a2:z2])],
+                          dev)
+        with trace.span("ops"):
+            aligned = setops.pair_align(*tensors)
+            return [t for op in ops for t in setops.apply_pair_op(
+                *aligned, op=op, rule=rule, cutoff=cutoff,
+                count_override=count_override, subtract=subtract)]
 
     def host(ts):
         return {op: _to_host(ts[2 * i], ts[2 * i + 1])
@@ -580,11 +627,11 @@ def multi_parts(word_lists, count_lists, op, rule="default", cutoff=1,
                  for w, n, c in zip(word_lists, count_lists, cuts)]
         if not any(len(w) for w, _ in parts):
             return None
-        return list(setops.apply_multi_op(
-            *_to_device(np.concatenate([w for w, _ in parts]),
-                        np.concatenate([n for _, n in parts]), dev),
-            n_lists=len(word_lists), op=op, rule=rule, cutoff=cutoff,
-            count_override=count_override))
+        tensors = _upload(parts, dev, join=True)
+        with trace.span("ops"):
+            return list(setops.apply_multi_op(
+                *tensors, n_lists=len(word_lists), op=op, rule=rule,
+                cutoff=cutoff, count_override=count_override))
     for out in _run_parts(run, len(cuts[0]) - 1, slots,
                           lambda ts: _to_host(*ts)):
         if out is not None:
@@ -604,29 +651,41 @@ def compare_pair(list1: str, list2: str, ops: list[str], outputname: str = "out"
     instead (by default with more than one CUDA card, as in JAX), the
     outputs streaming to the files as on one device.
     """
-    h1, w1, c1 = read_word_source(list1)
-    h2, w2, c2 = read_word_source(list2)
-    wlen = h1.word_length
     mesh = _group_mesh(device, mesh)
-    writer = mesh is None or mesh.writer
-    sinks = {op: _OpSink(op, _op_filename(outputname, wlen, op), wlen,
-                         count_only or not writer) for op in ops}
-    if _host_route() and not _grouped(mesh):
-        _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
-                           count_override, subtract)
-    else:
-        for out in pair_parts(w1, c1, w2, c2, list(sinks), RULES[rule],
-                              cutoff, count_override, subtract, device, mesh,
-                              bucket_target):
+    on_host = _host_route() and not _grouped(mesh)
+    with trace.span("compare"):
+        h1, w1, c1 = _read(list1)
+        h2, w2, c2 = _read(list2)
+        wlen = h1.word_length
+        writer = mesh is None or mesh.writer
+        with trace.span("write"):
+            sinks = {op: _OpSink(op, _op_filename(outputname, wlen, op),
+                                 wlen, count_only or not writer)
+                     for op in ops}
+        if on_host:
+            _host_compare_pair(sinks, h1, w1, c1, h2, w2, c2, rule, cutoff,
+                               count_override, subtract)
+        else:
+            for out in pair_parts(w1, c1, w2, c2, list(sinks), RULES[rule],
+                                  cutoff, count_override, subtract, device,
+                                  mesh, bucket_target):
+                with trace.span("write"):
+                    for op, sink in sinks.items():
+                        if len(out[op][0]):
+                            sink.append(*out[op])
+        results = {}
+        with trace.span("write"):
             for op, sink in sinks.items():
-                if len(out[op][0]):
-                    sink.append(*out[op])
-    results = {}
-    for op, sink in sinks.items():
-        sink.close()
-        results[op] = (sink.n_words, sink.total_count)
+                sink.close()
+                results[op] = (sink.n_words, sink.total_count)
     _publish(mesh)
     return results
+
+
+def _read(path):
+    """``read_word_source``: the span "read"."""
+    with trace.span("read"):
+        return read_word_source(path)
 
 
 def _group_mesh(device, mesh):
@@ -735,42 +794,47 @@ def compare_multi(paths: list[str], op: str, outputname: str = "out",
     route runs (None: CUDA), in buckets of at most ``bucket_target`` + N
     words; ``mesh``: the slots that take those buckets in turn, as in
     ``compare_pair``."""
-    data = [read_word_source(p) for p in paths]
-    wlen = data[0][0].word_length
-    n_lists = len(data)
-    # the reference validates rules per op with its enum number in the
-    # message and exit code 1 (src/glistcompare.c:518-523,617-623)
-    eff = RULES[rule] if rule in RULES else "number"
-    if op == "union" and eff not in ("default", "add", "max", "number"):
-        sys.stderr.write(
-            "union_multi: Invalid rule %d (only ADD, MAX and NUMBER "
-            "allowed)\n" % RULE_NUMBERS[eff])
-        raise SystemExit(1)
-    if op == "intrsec" and eff not in ("default", "add", "min", "max",
-                                       "number"):
-        sys.stderr.write(
-            "intersect_multi: Invalid rule %d (only ADD, MIN, MAX and "
-            "NUMBER allowed)\n" % RULE_NUMBERS[eff])
-        raise SystemExit(1)
-
     mesh = _group_mesh(device, mesh)
-    writer = mesh is None or mesh.writer
-    sink = _OpSink(op, _op_filename(outputname, wlen, op), wlen,
-                   count_only or not writer, debug=debug if writer else 0)
-    if _host_route() and not _grouped(mesh):
-        _host_compare_multi(sink, data, op, rule, cutoff, count_override,
-                            debug)
-        sink.close()
-        return {op: (sink.n_words, sink.total_count)}
+    on_host = _host_route() and not _grouped(mesh)
+    with trace.span("compare"):
+        data = [_read(p) for p in paths]
+        wlen = data[0][0].word_length
+        # the reference validates rules per op with its enum number in the
+        # message and exit code 1 (src/glistcompare.c:518-523,617-623)
+        eff = RULES[rule] if rule in RULES else "number"
+        if op == "union" and eff not in ("default", "add", "max", "number"):
+            sys.stderr.write(
+                "union_multi: Invalid rule %d (only ADD, MAX and NUMBER "
+                "allowed)\n" % RULE_NUMBERS[eff])
+            raise SystemExit(1)
+        if op == "intrsec" and eff not in ("default", "add", "min", "max",
+                                           "number"):
+            sys.stderr.write(
+                "intersect_multi: Invalid rule %d (only ADD, MIN, MAX and "
+                "NUMBER allowed)\n" % RULE_NUMBERS[eff])
+            raise SystemExit(1)
 
-    words = [w for _, w, _ in data]
-    counts = [c for _, _, c in data]
-    for w, c in multi_parts(words, counts, op, RULES.get(rule, "number"),
-                            cutoff, count_override, device, mesh,
-                            bucket_target):
-        if len(w):
-            sink.append(w, c)
-    sink.close()
+        writer = mesh is None or mesh.writer
+        with trace.span("write"):
+            sink = _OpSink(op, _op_filename(outputname, wlen, op), wlen,
+                           count_only or not writer,
+                           debug=debug if writer else 0)
+        if on_host:
+            _host_compare_multi(sink, data, op, rule, cutoff,
+                                count_override, debug)
+            sink.close()
+            return {op: (sink.n_words, sink.total_count)}
+
+        words = [w for _, w, _ in data]
+        counts = [c for _, _, c in data]
+        for w, c in multi_parts(words, counts, op, RULES.get(rule, "number"),
+                                cutoff, count_override, device, mesh,
+                                bucket_target):
+            if len(w):
+                with trace.span("write"):
+                    sink.append(w, c)
+        with trace.span("write"):
+            sink.close()
     _publish(mesh)
     return {op: (sink.n_words, sink.total_count)}
 

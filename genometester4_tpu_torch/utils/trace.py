@@ -20,8 +20,12 @@ on the thread it also adds to that span's ``counts``.
 
 Spans are recorded only while a ``torch.profiler`` (or the autograd
 profiler) is active, or while the program switches recording on with
-``recording()`` (glistmaker's ``-D``, ``tools/group_run``). Otherwise
-``span()`` returns one shared no-op context after that single check.
+``recording()`` (glistmaker's ``-D``, ``tools/group_run``), and inside
+a span that is recording. Otherwise ``span()`` returns one shared no-op
+context after that single check. The profiler's switch is a thread's
+own, so work that a span hands to another thread opens its spans inside
+``under(parent)`` with ``parent = current()`` taken on the span's
+thread: they are that span's children, and record because it does.
 Rows are kept in memory, at most ``CAP`` of them; those past the cap are
 counted in ``dropped`` and not kept. ``rows()``, ``totals()``,
 ``total(name)`` and ``reset()`` are the whole reading API.
@@ -127,24 +131,48 @@ _OFF = _Off()
 
 
 def span(name: str, wait: bool = False):
-    """A context that records one row on exit while recording is on; the
-    shared no-op otherwise."""
-    if _forced or _profiling():
+    """A context that records one row on exit while recording is on, or
+    inside an open span of this thread; the shared no-op otherwise."""
+    if _forced or getattr(_local, "stack", None) or _profiling():
         return _Span(name, wait)
     return _OFF
+
+
+def current():
+    """This thread's innermost open span, or None."""
+    st = getattr(_local, "stack", None)
+    return st[-1] if st else None
+
+
+@contextlib.contextmanager
+def under(parent):
+    """Inside the block, spans opened on this thread are children of
+    ``parent`` (an open span of any thread, from ``current()``), in its
+    job, and counters with no span of their own open add to its counts.
+    Nothing changes when ``parent`` is None."""
+    if parent is None:
+        yield
+        return
+    st = _stack()
+    st.append(parent)
+    try:
+        yield
+    finally:
+        while st and st.pop() is not parent:
+            pass
 
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the total ``name``, and to the innermost open span's
     counts."""
-    with _lock:
-        _totals[name] = _totals.get(name, 0) + n
     st = getattr(_local, "stack", None)
-    if st:
-        top = st[-1]
-        if top.counts is None:
-            top.counts = {}
-        top.counts[name] = top.counts.get(name, 0) + n
+    top = st[-1] if st else None
+    with _lock:   # a span's counts may be another thread's (``under``)
+        _totals[name] = _totals.get(name, 0) + n
+        if top is not None:
+            if top.counts is None:
+                top.counts = {}
+            top.counts[name] = top.counts.get(name, 0) + n
 
 
 @contextlib.contextmanager
